@@ -57,3 +57,8 @@ def pytest_configure(config):
         "path, obs knob round-trip + sink validation, resume-wait ledger, "
         "ledger gauges, counters monotone + spans complete across "
         "kill-and-recover; scale up via ASC_TEST_EXAMPLES)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips without one (the PyTorch port's "
+        "kernel-vs-plain tests, run on the card with "
+        "`PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`)")
