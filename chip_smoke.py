@@ -5,28 +5,40 @@
 
 The main path is a census run: 500 simulated AArch64 processes (5
 interception mechanisms x 5 workloads x 20 iteration counts, 25 decode
-images, ~8k instructions a lane) prepared with ASC-Hook and run to halt as
-one fleet through ``repro_torch.core.run_fleet_prepared`` — every chunk of
-steps one launch of the CUDA megastep kernel.  Guest-kernel emulation is
-off (``HookConfig(emul_enabled=False)``) and the run is untraced: the
-configuration this slice of the port covers.
+images, ~8k instructions a lane) prepared with ASC-Hook at the default
+``HookConfig`` (guest-kernel emulation on) and run to halt as one fleet
+through ``repro_torch.core.run_fleet_prepared`` — every chunk of steps one
+launch of the CUDA megastep kernel.  The same kernel carries three
+variants of the TPU kernel, each driven by a path of its own: K1 (the
+census with emulation off), K3 (the default census, the main path) and
+K2 (the default census traced, with the policy gate).
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
-1. build the kernel from ``src/`` (nvcc, sm_90a) and read the card;
-2. kernel vs plain PyTorch version on the card, one chunk at chunk 1, 8
-   and 128 from the census's initial state and from seeded random states,
-   at two block sizes — every leaf bit for bit;
-3. the main path to halt through the kernel, held leaf for leaf against
-   the plain version to halt, and against the census's deterministic
-   counts; kernel and plain times;
-4. the Table-3 per-call cycles (simulated, deterministic);
-5. the kernel table line, then the device line, which is the last.
+1. ``build``: the kernel from ``src/`` (nvcc, sm_90a), ptxas's report;
+2. ``kernel_vs_plain``: kernel vs plain PyTorch version on the card, one
+   chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit for
+   bit — from the emulation-off census and seeded random states, from the
+   default census and seeded random states with random guest-kernel
+   tables, and from traced carries with random per-lane policies;
+3. ``main_path``: the default census to halt through the kernel, held leaf
+   for leaf against the plain version to halt and against the JAX
+   package's pinned counts and digest; kernel, driver and plain times;
+4. ``census_emul_off``: the emulation-off census (K1) through the kernel,
+   against its pinned counts, and through the plain version;
+5. ``churn``: the 400-lane file-churn census with emulation on and with
+   the stubs, through the kernel, against pinned counts; both times;
+6. ``traced``: the default census traced under all-ALLOW policies (K2),
+   against the untraced states, the plain version and the JAX package's
+   pinned trace digest; traced and untraced kernel times;
+7. ``table3``: the Table-3 per-call cycles (simulated, deterministic);
+8. the kernel table line, the card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -40,14 +52,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import (HookConfig, Mechanism, fleet, pack_fleet,  # noqa: E402
-                              prepare, programs, run_fleet_prepared)
+from repro_torch.core import (  # noqa: E402
+    HookConfig, Mechanism, fleet, interop, pack_fleet, prepare, programs,
+    run_fleet_prepared)
 from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
+from repro_torch.core.hookcfg import PolicyRule  # noqa: E402
 from repro_torch.core.machine import HALT_EXIT, MachineState  # noqa: E402
+from repro_torch.core.runtime import fleet_trace  # noqa: E402
+from repro_torch.emul import state as emul_state  # noqa: E402
 from repro_torch.kernels.megastep import kernel as mkernel  # noqa: E402
 from repro_torch.kernels.megastep import ops as mops  # noqa: E402
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref  # noqa: E402
+from repro_torch.trace import policy as tpolicy  # noqa: E402
+from repro_torch.trace import recorder  # noqa: E402
 
 # -- the census deployment (a copy of benchmarks/collective_hook_overhead.py)
 FUEL = 10_000_000
@@ -61,12 +79,13 @@ MECHS = [
     ("ptrace", Mechanism.PTRACE, True),
 ]
 
+CHURN_NBYTES = 512
 WORKLOADS = {
     "getpid": programs.getpid_loop_param,
     "read": lambda: programs.read_loop_param(1024),
     "mixed": lambda: programs.mixed_ops_param(512),
     "io_bw": lambda: programs.io_bandwidth_param(4096),
-    "churn": lambda: programs.file_churn_param(512),
+    "churn": lambda: programs.file_churn_param(CHURN_NBYTES),
 }
 
 _BASE_ITERS = {  # ~8000 steps / measured steps-per-iter, rounded
@@ -82,23 +101,50 @@ _BASE_ITERS = {  # ~8000 steps / measured steps-per-iter, rounded
               "signal": 48, "ptrace": 174},
 }
 SCALES = tuple(round(1.0 - 0.01 * i, 2) for i in range(20))
+# the churn census of benchmarks/emul_overhead.py: every mechanism x 80
+# iteration counts of file_churn_param(512)
+CHURN_SCALES = tuple(round(1.0 - 0.005 * i, 3) for i in range(80))
 
-# What the JAX package gives for this census with emulation off (pinned in
-# tests/test_torch_fleet.py): every lane exits, these step and -ENOSYS
-# totals.  Deterministic counts, not timings.
+# What the JAX package gives for these runs (CPU, chunk 128, fuel 10M).
+# Deterministic counts and digests, not timings; tests/test_torch_*.py pin
+# the same numbers.
+# The census with emulation off (slice 1's path):
 CENSUS_EXPECTED = {"lanes": 500, "total_steps": 3_603_972,
                    "longest_lane_steps": 8_306, "enosys_total": 10_850}
+# The census at the default HookConfig, and the sha256 of its 34 final
+# leaves (each leaf's int64 bytes, in field order):
+CENSUS_DEFAULT_EXPECTED = {"lanes": 500, "total_steps": 3_603_972,
+                           "longest_lane_steps": 8_306, "enosys_total": 0,
+                           "emul_served_total": 198_696}
+CENSUS_DEFAULT_SHA256 = (
+    "bf093bebe619e2036172469be1f2764435d3ca56cb2e1eeed607dd558a9c743a")
+# The default census traced (cap 64, all-ALLOW): records and the sha256 of
+# the 10 TraceState leaves:
+TRACED_EXPECTED = {"records_total": 263_036, "deny": 0, "emul": 0, "kill": 0}
+TRACED_SHA256 = (
+    "f1897933d161359b5aa5aec31df4ff583e529837bfdceb76a9d78997b159a51b")
+# The churn census (benchmarks/results/BENCH_emul.json):
+CHURN_EXPECTED = {
+    "emul": {"lanes": 400, "total_steps": 2_557_520, "emul_served_total":
+             192_280, "enosys_total": 0},
+    "stub": {"lanes": 400, "total_steps": 2_557_520, "emul_served_total": 0,
+             "enosys_total": 38_456},
+}
 # Table 3 of the paper as the cost model reproduces it (simulated cycles).
 TABLE3_CYCLES = {"ld_preload": 18.0, "asc": 105.0, "signal": 2812.0,
                  "ptrace": 5940.0}
 N_HI, N_LO = 400, 200  # benchmarks/hook_overhead.py's differential
 
-# -- the bound's counting rules ------------------------------------------------
+# -- the bound's counting rules (PERF.md section 6) ---------------------------
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12      # the card's float32 rate; its int64 rate is lower
 OPS_PER_STEP = 128         # integer operations in one step's common path
-SMALL_READ_WORDS = 174     # carry words a lane loads (all but mem, ino_data)
-SMALL_WRITE_WORDS = 46     # carry words it writes back (regs + 15 scalars)
+SMALL_WORDS = 173          # carry words of a lane but mem and k_ino_data
+REC_BYTES = 8 * fleet.REC_WORDS  # one trace ring row
+HIST_BUMP_BYTES = 16       # one histogram word read and written
+# a traced lane's policy rows (int32 action + int64 arg a slot), read once,
+# and its 6 trace scalars, read and written once
+TRACE_LANE_BYTES = fleet.N_POLICY_SLOTS * 12 + 6 * 8 * 2
 
 
 def census_grid():
@@ -114,12 +160,28 @@ def census_grid():
 
 def census_processes(cfg=None):
     """The census's prepared processes (25 images shared by 500 lanes)
-    and per-lane entry registers."""
-    cfg = cfg or HookConfig(emul_enabled=False)
+    and per-lane entry registers; ``cfg`` defaults to ``HookConfig()``."""
+    cfg = cfg or HookConfig()
     cells = {(m, w): prepare(WORKLOADS[w](), mech, virtualize=virt, cfg=cfg)
              for m, mech, virt in MECHS for w in WORKLOADS}
     grid = census_grid()
     return [cells[(g[0], g[3])] for g in grid], [{19: g[4]} for g in grid]
+
+
+def churn_grid():
+    """[(mech_name, mech, virt, n)] — benchmarks/emul_overhead.py's grid."""
+    return [(m, mech, virt, max(2, int(_BASE_ITERS["churn"][m] * sc)))
+            for m, mech, virt in MECHS for sc in CHURN_SCALES]
+
+
+def churn_processes(emul: bool):
+    """The churn census's 400 processes (one image per mechanism), with
+    emulation on or with the legacy stubs."""
+    cfg = HookConfig(emul_enabled=emul)
+    cells = {m: prepare(WORKLOADS["churn"](), mech, virtualize=virt, cfg=cfg)
+             for m, mech, virt in MECHS}
+    grid = churn_grid()
+    return [cells[g[0]] for g in grid], [{19: g[3]} for g in grid]
 
 
 def per_call_cycles(device=None, n_hi: int = N_HI, n_lo: int = N_LO) -> dict:
@@ -157,7 +219,8 @@ def scramble(leaves: dict, code, rng) -> dict:
     svc with a syscall number in x8 (read and write often, with a buffer
     in x1 and a byte count in x2 that may be negative or unaligned); the
     rest start anywhere in the code, a few at an unaligned or wild pc.
-    Emulation stays off and fuel stays as packed."""
+    The guest-kernel leaves and fuel stay as packed (see
+    :func:`scramble_kern`)."""
     out = {k: np.array(v) for k, v in leaves.items()}
     B = out["pc"].shape[0]
 
@@ -203,6 +266,125 @@ def scramble(leaves: dict, code, rng) -> dict:
     return out
 
 
+_NAMES = np.asarray([emul_state.PROC_KEY, emul_state.DEV_KEY,
+                     emul_state.path_key(b"churn.da"),
+                     emul_state.path_key(b"f0"), emul_state.path_key(b"f1"),
+                     0, 12345], np.int64)
+
+
+_EMUL_NRS = np.asarray([L.SYS_OPENAT, L.SYS_CLOSE, L.SYS_READ, L.SYS_READ,
+                       L.SYS_WRITE, L.SYS_WRITE, L.SYS_LSEEK, L.SYS_DUP,
+                       L.SYS_FSTAT, L.SYS_PIPE2, L.SYS_GETRANDOM,
+                       L.SYS_IOCTL], np.int64)
+
+
+def scramble_kern(leaves: dict, code, rng) -> dict:
+    """Random guest-kernel tables on top of :func:`scramble` (numpy leaves).
+
+    Emulation is on in most lanes.  Table entries that index other tables
+    (fd -> OFD, OFD -> inode) are valid as often as not and otherwise
+    garbage, as are the kinds, flags and refcounts; file offsets stay in
+    ``[0, FILE_BYTES + 64]`` and inode sizes in ``[0, FILE_BYTES]``, the
+    ranges under which every data move stays inside its lane (a guest can
+    leave them with an lseek near INT64_MAX; the kernel is not exact
+    there, see ROADMAP.md Queue 3).  Another third of
+    the lanes start on an svc of an emulated family, with a small fd or a
+    buffer in x0, a buffer or a number in x1 and a size or flags in x2;
+    the word at x1 often names an existing inode, /proc or /dev/asc."""
+    out = {k: np.array(v) for k, v in leaves.items()}
+    B = out["pc"].shape[0]
+    F, N = L.MAX_FDS, L.MAX_INODES
+
+    def some(shape, p, val, other):
+        return np.where(rng.random(shape) < p, val, other)
+
+    out["k_enabled"] = (rng.random(B) < 0.85).astype(np.int64)
+    out["k_rng"] = rng.integers(-2**63, 2**63 - 1, B, dtype=np.int64,
+                                endpoint=True)
+    out["k_fd_ofd"] = some((B, F), 0.3, -1, some(
+        (B, F), 0.9, rng.integers(0, F, (B, F)),
+        rng.integers(-3, F + 3, (B, F))))
+    out["k_ofd_kind"] = some((B, F), 0.2, 0, some(
+        (B, F), 0.9, rng.integers(1, 8, (B, F)), rng.integers(0, 12, (B, F))))
+    out["k_ofd_ino"] = some((B, F), 0.9, rng.integers(0, N, (B, F)),
+                            rng.integers(-2, N + 2, (B, F)))
+    off = 8 * rng.integers(0, L.FILE_WORDS + 9, (B, F))
+    off = some((B, F), 0.4, 0, off)
+    out["k_ofd_off"] = some((B, F), 0.1, off + rng.integers(1, 8, (B, F)), off)
+    out["k_ofd_flags"] = rng.choice(
+        np.asarray([0, 0, L.O_APPEND, L.O_CREAT, L.O_TRUNC | L.O_APPEND, 7]),
+        (B, F))
+    out["k_ofd_ref"] = rng.integers(-1, 4, (B, F))
+    out["k_ino_kind"] = some((B, N), 0.3, 0, rng.integers(0, 4, (B, N)))
+    out["k_ino_name"] = rng.choice(_NAMES, (B, N))
+    size = 8 * rng.integers(0, L.FILE_WORDS + 1, (B, N))
+    out["k_ino_size"] = some((B, N), 0.1,
+                             np.minimum(size + rng.integers(1, 8, (B, N)),
+                                        L.FILE_BYTES), size)
+    out["k_ino_data"] = rng.integers(-2**63, 2**63 - 1, (B, N * L.FILE_WORDS),
+                                     dtype=np.int64, endpoint=True)
+    regs, pcs = out["regs"], out["pc"]
+    heap = L.HEAP_BASE + 8 * rng.integers(0, 2048, B)
+    for b in np.nonzero(rng.random(B) < 1 / 3)[0]:
+        if len(code[b][1]):
+            pcs[b] = rng.choice(code[b][1])
+            regs[b, 8] = rng.choice(_EMUL_NRS)
+            regs[b, 0] = (rng.integers(-1, F + 1) if rng.random() < 0.7
+                          else heap[b])
+            regs[b, 1] = heap[b] if rng.random() < 0.8 else rng.choice(
+                [0, 1, 2, 8, 64, 4096, 4160, -8])
+            regs[b, 2] = rng.choice([0, 8, 64, 512, 1024, 4096, 4160, -8, 12,
+                                     L.O_CREAT, L.O_TRUNC, L.O_APPEND,
+                                     L.O_CREAT | L.O_EXCL, 1, 2])
+    regs[:, 0] = some(B, 0.3, rng.integers(-1, F + 2, B), regs[:, 0])
+    mem = out["mem"]
+    widx = np.clip((regs[:, 1] - L.DATA_BASE) >> 3, 0, L.MEM_WORDS - 1)
+    mem[np.arange(B), widx] = some(B, 0.6, rng.choice(_NAMES, B),
+                                   mem[np.arange(B), widx])
+    return out
+
+
+def random_policies(n: int, rng, *, kill_lane: int | None = None) -> list:
+    """One seeded random rule list per lane: DENY, EMULATE on emulated
+    (guest-kernel) and on other numbers, ALLOW; ``kill_lane`` gets a KILL
+    on every number."""
+    nrs = [L.SYS_READ, L.SYS_WRITE, L.SYS_GETPID, L.SYS_OPENAT, L.SYS_CLOSE,
+           L.SYS_LSEEK, L.SYS_GETRANDOM, 181, -1]
+    pols = []
+    for b in range(n):
+        rules = []
+        for _ in range(int(rng.integers(0, 4))):
+            nr = int(rng.choice(nrs))
+            kind = int(rng.integers(0, 3))
+            if kind == 0:
+                rules.append(tpolicy.deny(nr, int(rng.integers(1, 40))))
+            elif kind == 1 and nr >= 0:
+                rules.append(tpolicy.emulate(nr, int(rng.integers(-5, 9000))))
+            else:
+                rules.append(tpolicy.allow(nr))
+        if b == kill_lane:
+            rules.append(PolicyRule(syscall_nr=-1, action="kill"))
+        pols.append(rules or None)
+    return pols
+
+
+def scramble_trace(n: int, cap: int, rng, policies) -> dict:
+    """A seeded random trace carry for ``n`` lanes as numpy leaves: rings,
+    counters and histograms random (``count < base`` included, ``hot`` in
+    {0, 1}), policy rows compiled from ``policies``."""
+    pa, pg = tpolicy.policy_rows(policies)
+    count = rng.integers(0, 4 * cap, n)
+    base = np.where(rng.random(n) < 0.2, count + rng.integers(1, cap + 1, n),
+                    np.minimum(rng.integers(0, 4 * cap, n), count))
+    return dict(
+        buf=rng.integers(-2**40, 2**40, (n, 2, cap, 8)),
+        count=count, hot=rng.integers(0, 2, n), base=base,
+        hist=rng.integers(0, 50, (n, fleet.N_POLICY_SLOTS, fleet.N_VERDICTS)),
+        pol_action=pa.astype(np.int32), pol_arg=pg.astype(np.int64),
+        deny_count=rng.integers(0, 9, n), emul_count=rng.integers(0, 9, n),
+        kill_count=np.zeros(n, np.int64))
+
+
 def code_of(pps) -> list:
     """Per lane, its image's code sections and svc addresses (for
     :func:`scramble`)."""
@@ -215,23 +397,40 @@ def code_of(pps) -> list:
     return out
 
 
-# -- helpers -------------------------------------------------------------------
+def digest(tree) -> str:
+    """sha256 of every leaf's int64 bytes, in field order (how the pinned
+    JAX digests were taken)."""
+    h = hashlib.sha256()
+    for leaf in tree:
+        a = leaf.cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
+        h.update(np.ascontiguousarray(np.asarray(a), np.int64).tobytes())
+    return h.hexdigest()
+
+
+def counts(out: MachineState) -> dict:
+    icount = out.icount.cpu().numpy()
+    return {"lanes": int(icount.shape[0]), "total_steps": int(icount.sum()),
+            "longest_lane_steps": int(icount.max()),
+            "enosys_total": int(out.enosys_count.sum()),
+            "emul_served_total": int(out.emul_served.sum())}
+
+
+# -- helpers ------------------------------------------------------------------
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def clone_state(s: MachineState) -> MachineState:
-    return MachineState(*(x.clone() for x in s))
+def clone(tree):
+    return type(tree)(*(x.clone() for x in tree))
 
 
-def mismatched(a: MachineState, b: MachineState) -> list:
-    return [f for f, x, y in zip(MachineState._fields, a, b)
-            if not torch.equal(x, y)]
+def mismatched(a, b) -> list:
+    return [f for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
 
 
-def max_abs_err(a: MachineState, b: MachineState) -> int:
-    return max(int((x - y).abs().max()) for x, y in zip(a, b))
+def max_abs_err(a, b) -> int:
+    return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
 
 
 def card_line() -> str:
@@ -241,40 +440,106 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def plain_run_to_halt(imgs, ids, s, chunk):
+def plain_run_to_halt(imgs, ids, s, chunk, tr=None):
     """The plain version's run to halt: the drivers' loop around
     megastep_chunk_ref (no kernel, no launch count)."""
     n = 0
     while bool(fleet._alive(s).any()):
-        s = megastep_chunk_ref(imgs, ids, s, chunk=chunk)
+        out = megastep_chunk_ref(imgs, ids, s, tr, chunk=chunk)
+        s, tr = (out, None) if tr is None else out
         n += 1
-    return fleet._patch_fuel(s), n
+    return fleet._patch_fuel(s), tr, n
 
 
-def census_bound_ms(out: MachineState, code_words: int) -> tuple:
-    """The least time the card could take for the census's work: the
-    larger of its bytes over the memory rate and its integer operations
-    over the peak rate (see PERF.md for the counting rules).
-    ``code_words`` counts the code words in the sections of the distinct
-    images (16 bytes of decode table each)."""
+def kernel_census_ms(pps, regs, chunks, *, dev, traced=False, reps=2):
+    """The kernel's own time for a whole census: ``chunks`` launches back
+    to back (CUDA events) from a fresh pack, after a warm-up pass; these
+    launches are not counted.  Returns (best ms, all runs, final carry)."""
+    times, last = [], None
+    for rep in range(reps + 1):
+        imgs, ids, sk = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
+        tk = fleet_trace(pps, device=dev) if traced else None
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(chunks):
+            mkernel.megastep_chunk_cuda(imgs, ids, sk, tk, chunk=CHUNK)
+        e1.record()
+        torch.cuda.synchronize()
+        if rep:
+            times.append(e0.elapsed_time(e1))
+        last = (fleet._patch_fuel(sk), tk)
+    return min(times), times, last
+
+
+def census_bound_ms(out: MachineState, code_words: int, *,
+                    emul_payload: int = 0, records: int = 0,
+                    traced_lanes: int = 0) -> tuple:
+    """The least time the card could take for a census's work: the larger
+    of its bytes over the memory rate and its integer operations over the
+    peak rate (PERF.md section 6 has the rules).  ``code_words`` counts
+    the code words of the distinct images (16 bytes of decode table
+    each); ``emul_payload`` the bytes the emulation's data mover moves,
+    each read from one plane and written to the other: the only bytes of
+    ``mem`` and ``k_ino_data`` the work needs besides the stream I/O;
+    ``records`` the trace records of a traced run over ``traced_lanes``."""
     lanes = int(out.pc.shape[0])
     steps = int(out.icount.sum())
-    payload = int(out.in_off.sum() + out.out_count.sum())  # I/O bytes moved
-    nbytes = (lanes * 8 * (SMALL_READ_WORDS + SMALL_WRITE_WORDS)
-              + 16 * code_words + payload)
-    ops = steps * OPS_PER_STEP + 2 * payload // 8
+    stream = int(out.in_off.sum() + out.out_count.sum())  # stream I/O bytes
+    nbytes = (lanes * 8 * 2 * SMALL_WORDS + lanes * 4 + 16 * code_words
+              + stream + 2 * emul_payload
+              + records * (REC_BYTES + HIST_BUMP_BYTES)
+              + traced_lanes * TRACE_LANE_BYTES)
+    ops = steps * OPS_PER_STEP + 2 * (stream + emul_payload) // 8
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
             nbytes, ops)
 
 
-# -- phases --------------------------------------------------------------------
+def code_words_of(pps) -> int:
+    distinct = {id(pp): pp for pp in pps}.values()
+    digests = {}
+    for pp in distinct:
+        digests[hashlib.sha1(np.ascontiguousarray(pp.image.words)
+                             .tobytes()).hexdigest()] = pp
+    return sum(sec.size // 4 for pp in digests.values()
+               for sec in pp.image.sections)
+
+
+# -- phases -------------------------------------------------------------------
+
+def check_chunks(name, imgs, ids, start, tr, checks):
+    """One chunk at 1, 8 and 128 steps and blocks 32 and 96: the kernel
+    equals the plain version on every leaf.  Returns the largest error."""
+    err = 0
+    for chunk in (1, 8, 128):
+        want = megastep_chunk_ref(imgs, ids, clone(start),
+                                  None if tr is None else clone(tr),
+                                  chunk=chunk)
+        for block in (32, 96):  # 500 % 32 and 500 % 96: ragged edges
+            got = mops.megastep_chunk(imgs, ids, clone(start),
+                                      None if tr is None else clone(tr),
+                                      chunk=chunk, block=block)
+            torch.cuda.synchronize()
+            pairs = [(want, got)] if tr is None else list(zip(want, got))
+            for w, g in pairs:
+                bad = mismatched(w, g)
+                if bad:
+                    raise AssertionError(
+                        f"kernel != plain on {name}, chunk={chunk}, "
+                        f"block={block}: leaves {bad}")
+                err = max(err, max_abs_err(w, g))
+            checks.append(name)
+    return err
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -286,141 +551,275 @@ def main() -> int:
     mkernel.load_library()
     ptxas = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "spill" in ln or "stack frame" in ln]
-    emit({"phase": "build", "seconds": build_s, "library": lib.name,
-          "ptxas": ptxas, "card": card, "kind": kind,
+    emit({"phase": "build", "card": card, "seconds": build_s,
+          "library": lib.name, "ptxas": ptxas, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. kernel vs plain, one chunk, on the card
     t0 = time.perf_counter()
-    pps, regs = census_processes()
-    imgs, ids, s0 = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
+    pps_off, regs = census_processes(HookConfig(emul_enabled=False))
+    pps_def, _ = census_processes()
+    imgs, ids, s_off = pack_fleet(pps_off, fuel=FUEL, regs=regs, device=dev)
+    imgs_d, ids_d, s_def = pack_fleet(pps_def, fuel=FUEL, regs=regs,
+                                      device=dev)
+    if not (all(map(torch.equal, imgs, imgs_d)) and torch.equal(ids, ids_d)):
+        raise AssertionError("the emulation flag changed the decode images")
     prep_s = time.perf_counter() - t0
-    code = code_of(pps)
-    starts = [("census_initial", s0)]
-    for seed in (0, 1, 2):
-        rng = np.random.default_rng(seed)
-        host = {f: getattr(s0, f).cpu().numpy() for f in MachineState._fields}
-        sc = scramble(host, code, rng)
-        starts.append((f"random_seed{seed}", MachineState(
-            *(torch.from_numpy(sc[f]).to(dev)
-              for f in MachineState._fields))))
-    checks = 0
-    for name, start in starts:
-        for chunk in (1, 8, 128):
-            want = megastep_chunk_ref(imgs, ids, clone_state(start),
-                                      chunk=chunk)
-            for block in (32, 96):  # 500 % 32 and 500 % 96: ragged edges
-                got = mops.megastep_chunk(imgs, ids, clone_state(start),
-                                          chunk=chunk, block=block)
-                torch.cuda.synchronize()
-                bad = mismatched(want, got)
-                if bad:
-                    raise AssertionError(
-                        f"kernel != plain on {name}, chunk={chunk}, "
-                        f"block={block}: leaves {bad}")
-                checks += 1
-    emit({"phase": "kernel_vs_plain", "lanes": int(s0.pc.shape[0]),
-          "images": int(imgs.packed.shape[0]), "starts": len(starts),
-          "chunks": [1, 8, 128], "blocks": [32, 96], "checks": checks,
-          "mismatched_leaves": 0, "prepare_s": prep_s})
+    code = code_of(pps_off)
+    B = int(s_off.pc.shape[0])
 
-    # 3. the main path to halt, through the kernel
-    run_fleet_prepared(pps[:8], fuel=FUEL, chunk=CHUNK, regs=regs[:8],
+    def host(s):
+        return {f: getattr(s, f).cpu().numpy() for f in MachineState._fields}
+
+    def on_card(leaves):
+        return MachineState(*(torch.from_numpy(leaves[f]).to(dev)
+                              for f in MachineState._fields))
+
+    starts = [("emul_off_initial", s_off, None)]
+    for seed in (0, 1, 2):
+        starts.append((f"emul_off_random_seed{seed}", on_card(scramble(
+            host(s_off), code, np.random.default_rng(seed))), None))
+    starts.append(("default_initial", s_def, None))
+    for seed in (3, 4):
+        rng = np.random.default_rng(seed)
+        starts.append((f"default_random_kern_seed{seed}", on_card(
+            scramble_kern(scramble(host(s_def), code, rng), code, rng)),
+            None))
+    rng = np.random.default_rng(5)
+    tr0 = fleet_trace(pps_def, device=dev)
+    pa, pg = tpolicy.policy_rows(random_policies(B, rng, kill_lane=7))
+    tr_pol = tr0._replace(pol_action=torch.from_numpy(pa).to(dev),
+                          pol_arg=torch.from_numpy(pg).to(dev))  # fresh rings
+    starts.append(("traced_policies_seed5", s_def, tr_pol))
+    rng = np.random.default_rng(6)
+    s_rand = on_card(scramble_kern(scramble(host(s_def), code, rng), code,
+                                   rng))
+    starts.append(("traced_random_seed6", s_rand, interop.trace_from_numpy(
+        scramble_trace(B, int(tr0.buf.shape[2]), rng,
+                       random_policies(B, rng, kill_lane=11)), dev)))
+    checks, err_by = [], {}
+    for name, start, tr in starts:
+        variant = "K2" if tr is not None else (
+            "K1" if name.startswith("emul_off") else "K3")
+        e = check_chunks(name, imgs, ids, start, tr, checks)
+        err_by[variant] = max(err_by.get(variant, 0), e)
+    emit({"phase": "kernel_vs_plain", "card": card, "lanes": B,
+          "images": int(imgs.packed.shape[0]),
+          "starts": [n for n, *_ in starts],
+          "chunks": [1, 8, 128], "blocks": [32, 96], "checks": len(checks),
+          "mismatched_leaves": 0, "prepare_s": prep_s,
+          "seconds": time.perf_counter() - t0})
+
+    # 3. the main path: the default census to halt, through the kernel
+    run_fleet_prepared(pps_def[:8], fuel=FUEL, chunk=CHUNK, regs=regs[:8],
                        device=dev)  # warm-up: allocator, streams
     torch.cuda.synchronize()
     mops.megastep_chunk.launches = 0
     t0 = time.perf_counter()
-    out = run_fleet_prepared(pps, fuel=FUEL, chunk=CHUNK, regs=regs,
+    out = run_fleet_prepared(pps_def, fuel=FUEL, chunk=CHUNK, regs=regs,
                              device=dev)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = mops.megastep_chunk.launches
-
-    icount = out.icount.cpu().numpy()
+    launches_k3 = mops.megastep_chunk.launches
+    got = counts(out)
     halted = out.halted.cpu().numpy()
-    chunks = math.ceil(int(icount.max()) / CHUNK)
-    if launches <= 0 or launches != chunks:
-        raise AssertionError(f"launches {launches}, chunks dispatched {chunks}")
-    got = {"lanes": int(icount.shape[0]), "total_steps": int(icount.sum()),
-           "longest_lane_steps": int(icount.max()),
-           "enosys_total": int(out.enosys_count.sum())}
-    if got != CENSUS_EXPECTED or not (halted == HALT_EXIT).all():
-        raise AssertionError(f"census counts {got}, halted "
+    chunks = math.ceil(got["longest_lane_steps"] / CHUNK)
+    if launches_k3 <= 0 or launches_k3 != chunks:
+        raise AssertionError(f"launches {launches_k3}, chunks {chunks}")
+    if got != CENSUS_DEFAULT_EXPECTED or not (halted == HALT_EXIT).all():
+        raise AssertionError(f"default census counts {got}, halted "
                              f"{np.bincount(halted).tolist()}; expected "
-                             f"{CENSUS_EXPECTED}, all HALT_EXIT")
+                             f"{CENSUS_DEFAULT_EXPECTED}, all HALT_EXIT")
+    if digest(out) != CENSUS_DEFAULT_SHA256:
+        raise AssertionError("default census leaves differ from the JAX "
+                             "package's (sha256)")
 
     # where the main path's time goes: packing (host), then the driver
     # loop (kernel launches + one host sync per chunk)
     t0 = time.perf_counter()
-    _, _, sd = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
+    _, _, sd = pack_fleet(pps_def, fuel=FUEL, regs=regs, device=dev)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mops.run(imgs, ids, sd, chunk=CHUNK)
+    mops.run(imgs_d, ids_d, sd, chunk=CHUNK)
     torch.cuda.synchronize()
     driver_ms = (time.perf_counter() - t0) * 1e3
     if mismatched(sd, out):
         raise AssertionError("driver run != main path")
 
-    # plain version to halt on the card, from the same packed state
-    _, _, sp0 = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
+    # the plain version to halt on the card, from the same packed state
+    _, _, sp0 = pack_fleet(pps_def, fuel=FUEL, regs=regs, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain, plain_chunks = plain_run_to_halt(imgs, ids, sp0, CHUNK)
+    plain, _, plain_chunks = plain_run_to_halt(imgs_d, ids_d, sp0, CHUNK)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_ms_k3 = (time.perf_counter() - t0) * 1e3
     bad = mismatched(plain, out)
     if bad:
         raise AssertionError(f"main path != plain version: leaves {bad}")
-    err = max_abs_err(plain, out)
+    err_by["K3"] = max(err_by["K3"], max_abs_err(plain, out))
 
-    # the kernel's own time for the whole census: `chunks` launches back to
-    # back (CUDA events), after a warm-up pass; uncounted launches
-    times = []
-    for rep in range(3):
-        _, _, sk = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(chunks):
-            mkernel.megastep_chunk_cuda(imgs, ids, sk, chunk=CHUNK)
-        e1.record()
-        torch.cuda.synchronize()
-        if rep:
-            times.append(e0.elapsed_time(e1))
-        if mismatched(fleet._patch_fuel(sk), out):
-            raise AssertionError("timed kernel run != main path")
-    kernel_ms = min(times)
-    distinct = {id(pp): pp for pp in pps}.values()
-    code_words = sum(sec.size // 4 for pp in distinct
-                     for sec in pp.image.sections)
-    (bound_ms, bound_by), nbytes, nops = census_bound_ms(out, code_words)
+    kernel_ms_k3, runs_k3, (sk, _) = kernel_census_ms(pps_def, regs, chunks,
+                                                     dev=dev)
+    if mismatched(sk, out):
+        raise AssertionError("timed kernel run != main path")
+    grid = census_grid()
+    churn_payload = sum(2 * CHURN_NBYTES * g[4] for g in grid
+                        if g[3] == "churn")
+    cw = code_words_of(pps_def)
+    (bound_k3, by_k3), nbytes, nops = census_bound_ms(
+        out, cw, emul_payload=churn_payload)
     emit({"phase": "main_path", "card": card, **got,
+          "sha256": CENSUS_DEFAULT_SHA256,
           "halted": {"HALT_EXIT": int((halted == HALT_EXIT).sum())},
-          "chunk": CHUNK, "launches": launches,
+          "chunk": CHUNK, "launches": launches_k3,
           "path_s": path_s, "pack_s": pack_s, "driver_ms": driver_ms,
-          "kernel_ms": kernel_ms, "kernel_ms_runs": times,
-          "device_idle_share": 1 - kernel_ms / driver_ms,
-          "lane_steps_per_s": got["total_steps"] / (kernel_ms / 1e3),
-          "plain_ms": plain_ms, "plain_chunks": plain_chunks,
-          "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
-          "bound_ops": nops, "mismatched_leaves": 0})
+          "kernel_ms": kernel_ms_k3, "kernel_ms_runs": runs_k3,
+          "device_idle_share": 1 - kernel_ms_k3 / driver_ms,
+          "lane_steps_per_s": got["total_steps"] / (kernel_ms_k3 / 1e3),
+          "plain_ms": plain_ms_k3, "plain_chunks": plain_chunks,
+          "bound_ms": bound_k3, "bound_by": by_k3, "bound_bytes": nbytes,
+          "bound_ops": nops, "emul_payload_bytes": churn_payload,
+          "mismatched_leaves": 0})
 
-    # 4. the deterministic invariant: Table 3 per-call cycles
+    # 4. the emulation-off census (slice 1's path, K1)
+    mops.megastep_chunk.launches = 0
+    out_off = run_fleet_prepared(pps_off, fuel=FUEL, chunk=CHUNK, regs=regs,
+                                 device=dev)
+    torch.cuda.synchronize()
+    launches_k1 = mops.megastep_chunk.launches
+    got_off = counts(out_off)
+    got_off.pop("emul_served_total")
+    if (got_off != CENSUS_EXPECTED
+            or not (out_off.halted.cpu().numpy() == HALT_EXIT).all()):
+        raise AssertionError(f"emul-off census counts {got_off}; expected "
+                             f"{CENSUS_EXPECTED}, all HALT_EXIT")
+    chunks_off = math.ceil(got_off["longest_lane_steps"] / CHUNK)
+    if launches_k1 != chunks_off:
+        raise AssertionError(f"launches {launches_k1}, chunks {chunks_off}")
+    _, _, sp0 = pack_fleet(pps_off, fuel=FUEL, regs=regs, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_off, _, _ = plain_run_to_halt(imgs, ids, sp0, CHUNK)
+    torch.cuda.synchronize()
+    plain_ms_k1 = (time.perf_counter() - t0) * 1e3
+    bad = mismatched(plain_off, out_off)
+    if bad:
+        raise AssertionError(f"emul-off census != plain version: {bad}")
+    err_by["K1"] = max(err_by["K1"], max_abs_err(plain_off, out_off))
+    kernel_ms_k1, runs_k1, _ = kernel_census_ms(pps_off, regs, chunks_off,
+                                                dev=dev)
+    (bound_k1, by_k1), _, _ = census_bound_ms(out_off, cw)
+    emit({"phase": "census_emul_off", "card": card, **got_off,
+          "launches": launches_k1,
+          "kernel_ms": kernel_ms_k1, "kernel_ms_runs": runs_k1,
+          "plain_ms": plain_ms_k1, "bound_ms": bound_k1, "bound_by": by_k1,
+          "mismatched_leaves": 0})
+
+    # 5. the churn census: emulation on vs the stubs, kernel only
+    churn = {}
+    for arm in ("emul", "stub"):
+        pps_c, regs_c = churn_processes(arm == "emul")
+        out_c = run_fleet_prepared(pps_c, fuel=FUEL, chunk=CHUNK,
+                                   regs=regs_c, device=dev)
+        got_c = counts(out_c)
+        if ({k: got_c[k] for k in CHURN_EXPECTED[arm]} != CHURN_EXPECTED[arm]
+                or not (out_c.halted.cpu().numpy() == HALT_EXIT).all()):
+            raise AssertionError(f"churn {arm} counts {got_c}; expected "
+                                 f"{CHURN_EXPECTED[arm]}, all HALT_EXIT")
+        n_chunks = math.ceil(got_c["longest_lane_steps"] / CHUNK)
+        ms, runs, (sk, _) = kernel_census_ms(pps_c, regs_c, n_chunks, dev=dev)
+        if mismatched(sk, out_c):
+            raise AssertionError(f"timed churn {arm} run != entry point")
+        churn[arm] = {**got_c, "chunks": n_chunks, "kernel_ms": ms,
+                      "kernel_ms_runs": runs}
+    emit({"phase": "churn", "card": card, **churn,
+          "emul_over_stub": churn["emul"]["kernel_ms"]
+          / churn["stub"]["kernel_ms"]})
+
+    # 6. the default census traced, all-ALLOW (K2)
+    mops.megastep_chunk.launches = 0
+    out_t, tr_t = run_fleet_prepared(pps_def, fuel=FUEL, chunk=CHUNK,
+                                     regs=regs, trace=True, device=dev)
+    torch.cuda.synchronize()
+    launches_k2 = mops.megastep_chunk.launches
+    if launches_k2 != chunks:
+        raise AssertionError(f"traced launches {launches_k2}, chunks {chunks}")
+    bad = mismatched(out_t, out)
+    if bad:
+        raise AssertionError(f"traced states != untraced: leaves {bad}")
+    count = tr_t.count.cpu().numpy()
+    verdicts = {"deny": int(tr_t.deny_count.sum()),
+                "emul": int(tr_t.emul_count.sum()),
+                "kill": int(tr_t.kill_count.sum())}
+    if any(verdicts.values()):
+        raise AssertionError(f"verdicts under all-ALLOW: {verdicts}")
+    if not np.array_equal(count, tr_t.hist.sum((1, 2)).cpu().numpy()):
+        raise AssertionError("trace count != histogram total")
+    if ({"records_total": int(count.sum()), **verdicts} != TRACED_EXPECTED
+            or digest(tr_t) != TRACED_SHA256):
+        raise AssertionError("traced census differs from the JAX package's "
+                             "(record count / sha256)")
+    _, _, sp0 = pack_fleet(pps_def, fuel=FUEL, regs=regs, device=dev)
+    tp0 = fleet_trace(pps_def, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_t, plain_tr, _ = plain_run_to_halt(imgs_d, ids_d, sp0, CHUNK, tp0)
+    torch.cuda.synchronize()
+    plain_ms_k2 = (time.perf_counter() - t0) * 1e3
+    bad = mismatched(plain_t, out_t) + mismatched(plain_tr, tr_t)
+    if bad:
+        raise AssertionError(f"traced census != plain version: {bad}")
+    if recorder.harvest(plain_tr) != recorder.harvest(tr_t):
+        raise AssertionError("decoded rings differ from the plain version")
+    err_by["K2"] = max(err_by["K2"], max_abs_err(plain_tr, tr_t),
+                       max_abs_err(plain_t, out_t))
+    # traced and untraced kernel times, interleaved on one card
+    t_un1, _, _ = kernel_census_ms(pps_def, regs, chunks, dev=dev, reps=1)
+    kernel_ms_k2, runs_k2, (sk, tk) = kernel_census_ms(
+        pps_def, regs, chunks, dev=dev, traced=True)
+    t_un2, _, _ = kernel_census_ms(pps_def, regs, chunks, dev=dev, reps=1)
+    if mismatched(sk, out_t) or mismatched(tk, tr_t):
+        raise AssertionError("timed traced run != entry point")
+    records = int(count.sum())
+    (bound_k2, by_k2), _, _ = census_bound_ms(
+        out_t, cw, emul_payload=churn_payload, records=records,
+        traced_lanes=B)
+    emit({"phase": "traced", "card": card, "launches": launches_k2,
+          "records": records,
+          "records_max_lane": int(count.max()), **verdicts,
+          "trace_sha256": digest(tr_t),
+          "kernel_ms": kernel_ms_k2, "kernel_ms_runs": runs_k2,
+          "untraced_kernel_ms": [t_un1, t_un2],
+          "traced_over_untraced": kernel_ms_k2 / min(t_un1, t_un2),
+          "plain_ms": plain_ms_k2, "bound_ms": bound_k2, "bound_by": by_k2,
+          "mismatched_leaves": 0})
+
+    # 7. the deterministic invariant: Table 3 per-call cycles
     cyc = table3(per_call_cycles(device=dev))
     if cyc != TABLE3_CYCLES:
         raise AssertionError(f"Table-3 cycles {cyc} != {TABLE3_CYCLES}")
-    emit({"phase": "table3", "cycles_per_call": cyc})
+    emit({"phase": "table3", "card": card, "cycles_per_call": cyc,
+          "script_s": time.perf_counter() - t_script})
 
-    # 5. the kernel table, the card, and the device line (last)
-    emit({"kernels": [{
-        "name": "megastep_chunk", "route": "cuda",
-        "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
-        "replaces": "src/repro/kernels/megastep/kernel.py:103",
-        "launches": launches, "max_abs_err": err, "mismatched_leaves": 0,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]})
+    # 8. the kernel table, the card, and the device line (last)
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
+              "replaces": "src/repro/kernels/megastep/kernel.py:103",
+              "library_ms": None}
+    emit({"kernels": [
+        {"name": "megastep_chunk K1 (untraced, emulation off)", **common,
+         "launches": launches_k1, "max_abs_err": err_by["K1"],
+         "ms": kernel_ms_k1, "plain_ms": plain_ms_k1, "bound_ms": bound_k1,
+         "bound_by": by_k1},
+        {"name": "megastep_chunk K3 (untraced, emulation on)", **common,
+         "launches": launches_k3, "max_abs_err": err_by["K3"],
+         "ms": kernel_ms_k3, "plain_ms": plain_ms_k3, "bound_ms": bound_k3,
+         "bound_by": by_k3},
+        {"name": "megastep_chunk K2 (traced, policy gate)", **common,
+         "launches": launches_k2, "max_abs_err": err_by["K2"],
+         "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
+         "bound_by": by_k2}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,8 @@
 
 The JAX package (:mod:`repro`) is the reference; this package mirrors its
 layout and names and never imports it (nor JAX).  Ported so far: image
-preparation (scan, hybrid rewrite, trampolines), the fleet's untraced
-executor for lanes with guest-kernel emulation off, its run-to-halt and
+preparation (scan, hybrid rewrite, trampolines), the whole fleet executor
+— guest-kernel emulation (:mod:`repro_torch.emul`), syscall tracing and
+seccomp-style policy (:mod:`repro_torch.trace`) — its run-to-halt and
 bounded-span drivers, and the CUDA megastep kernel they dispatch to.
 """

@@ -9,21 +9,22 @@ for.  This lane-vectorised eager step is the plain PyTorch version of the
 CUDA megastep kernel (:mod:`repro_torch.kernels.megastep`); on the card
 every chunk of steps runs in that kernel instead.
 
-What this slice ports: the untraced executor for lanes whose guest-kernel
-emulation is off (``k_enabled == 0``, i.e. prepared with
-``HookConfig(emul_enabled=False)``).  Tracing, lane sharding, compaction
-and the emulation service are later slices; their entry points raise
-``NotImplementedError``.
+Ported: the whole executor — lanes with the guest-kernel emulation on
+(the ``HookConfig`` default) or off, untraced or with the syscall trace
+ring and seccomp-style policy carry (:class:`TraceState`).  Lane
+sharding, compaction and streaming are later slices; their entry points
+raise ``NotImplementedError``.
 
-Carry semantics: the ``[B, MEM_WORDS]`` memory plane is updated in place
-(it is never copied per step); the drivers update every leaf of the carry
-they are given in place, as the JAX package's entry points donate theirs.
-Per lane, results are bit-identical to the JAX package's fleet engine.
+Carry semantics: the big planes (``mem``, ``k_ino_data``, the trace ring
+and histogram) are updated in place (never copied per step); the drivers
+update every leaf of the carry they are given in place, as the JAX
+package's entry points donate theirs.  Per lane, results are
+bit-identical to the JAX package's fleet engine.
 """
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,9 +33,11 @@ from . import costmodel as cm
 from . import layout as L
 from . import opspec
 from .isa import Op
-from .machine import (HALT_BADMEM, HALT_EXIT, HALT_FUEL, HALT_SEGV,
-                      HALT_TRAP, RUNNING, SIGFRAME_WORDS, DecodedImage,
-                      MachineState, _SIGFRAME_IDX, resolve_device)
+from .machine import (HALT_BADMEM, HALT_EXIT, HALT_FUEL, HALT_KILL,
+                      HALT_SEGV, HALT_TRAP, RUNNING, SIGFRAME_WORDS,
+                      DecodedImage, MachineState, _SIGFRAME_IDX,
+                      resolve_device)
+from ..emul import engine as emul_engine
 
 I64 = torch.int64
 I32 = torch.int32
@@ -44,10 +47,48 @@ _COUNTER_IDX = (L.COUNTER - L.DATA_BASE) // 8
 
 DEFAULT_CHUNK = 8
 
-_EMUL_HINT = ("guest-kernel emulation (k_enabled != 0) is not ported yet "
-              "(emulation slice, K3); prepare the processes with "
-              "cfg=HookConfig(emul_enabled=False)")
-_TRACE_HINT = "traced fleets (trace=...) are not ported yet (trace slice, K2)"
+
+# ---------------------------------------------------------------------------
+# syscall tracing + policy carry (the device side of repro_torch.trace)
+# ---------------------------------------------------------------------------
+
+# Record layout: one ring row per executed svc.
+REC_WORDS = 8
+REC_STEP, REC_PC, REC_NR, REC_X0, REC_X1, REC_X2, REC_RET, REC_VERDICT = \
+    range(REC_WORDS)
+
+TRACE_SYS = opspec.TRACE_SYS
+SLOT_UNKNOWN = opspec.SLOT_UNKNOWN
+N_POLICY_SLOTS = opspec.N_POLICY_SLOTS
+POL_ALLOW, POL_DENY = opspec.POL_ALLOW, opspec.POL_DENY
+POL_EMULATE, POL_KILL = opspec.POL_EMULATE, opspec.POL_KILL
+VERDICT_UNKNOWN = opspec.VERDICT_UNKNOWN
+N_VERDICTS = opspec.N_VERDICTS
+
+DEFAULT_TRACE_CAP = 64
+
+
+class TraceState(NamedTuple):
+    """Per-lane syscall trace ring + policy tables (the JAX package's
+    ``TraceState``, same 10 leaves in the same order).
+
+    Lane ``b`` appends into half ``hot[b]`` of its double buffer at row
+    ``(count[b] - base[b]) % CAP``; a never-flipped carry (``hot == base
+    == 0``) is the classic single ring, and ``count`` keeps the lifetime
+    total, so the host decoder knows how many records were dropped.
+    ``hist`` counts policy-slot x verdict pairs; the ``*_count`` leaves
+    count verdicts."""
+
+    buf: torch.Tensor         # int64[B, 2, CAP, REC_WORDS]: hot/cold halves
+    count: torch.Tensor       # int64[B]: records ever produced per lane
+    hot: torch.Tensor         # int64[B]: the half currently appended to
+    base: torch.Tensor        # int64[B]: lifetime count at the last flip
+    hist: torch.Tensor        # int64[B, N_POLICY_SLOTS, N_VERDICTS]
+    pol_action: torch.Tensor  # int32[B, N_POLICY_SLOTS]
+    pol_arg: torch.Tensor     # int64[B, N_POLICY_SLOTS]: errno / constant
+    deny_count: torch.Tensor  # int64[B]: DENY verdicts per lane
+    emul_count: torch.Tensor  # int64[B]: EMULATE verdicts per lane
+    kill_count: torch.Tensor  # int64[B]: KILL verdicts per lane (0 or 1)
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +138,20 @@ def states_to(states: MachineState, device) -> MachineState:
     return MachineState(*(x.to(device) for x in states))
 
 
+def stack_traces(traces: Sequence[TraceState]) -> TraceState:
+    """Stack per-lane trace carries along a new leading lane axis."""
+    return TraceState(*(torch.stack(xs) for xs in zip(*traces)))
+
+
+def unstack_trace(trace: TraceState, lane: int) -> TraceState:
+    """Extract one lane of a trace carry (views into the fleet's leaves)."""
+    return TraceState(*(x[lane] for x in trace))
+
+
+def traces_to(trace: TraceState, device) -> TraceState:
+    return TraceState(*(x.to(device) for x in trace))
+
+
 def images_to(imgs: FleetImages, device) -> FleetImages:
     return FleetImages(*(x.to(device) for x in imgs))
 
@@ -124,13 +179,7 @@ def _widx_v(addr):
     return ((addr - L.DATA_BASE) >> 3).clamp(0, L.MEM_WORDS - 1)
 
 
-def _select(pairs, default):
-    """``jnp.select``: the value of the FIRST true condition per lane.  A
-    ``torch.where`` chain reaches that by applying the pairs in reverse."""
-    out = default
-    for cond, val in reversed(pairs):
-        out = torch.where(cond, val, out)
-    return out
+_select = emul_engine.select  # jnp.select: the FIRST true condition wins
 
 
 def _fetch(img: FleetImages, ids: torch.Tensor, pc0: torch.Tensor):
@@ -153,14 +202,20 @@ def _fetch(img: FleetImages, ids: torch.Tensor, pc0: torch.Tensor):
     return op, rd, rn, rm, sh, cond, sf, imm
 
 
-def exec_lanes(fields, s: MachineState) -> MachineState:
+def exec_lanes(fields, s: MachineState, tr: Optional[TraceState] = None):
     """Execute one decoded instruction per live lane, generated from the
     op-spec table — a line-by-line translation of the JAX package's
-    ``fleet.exec_lanes`` for untraced lanes with emulation off.
+    ``fleet.exec_lanes``: the ALU, memory, branch and signal semantics,
+    the syscall rows, the guest-kernel service (:mod:`repro_torch.emul`)
+    on lanes with ``k_enabled != 0`` and, with a trace carry ``tr``, the
+    policy gate, the record ring, the histogram and the verdict counters.
 
-    ``s.mem`` is updated in place and shared with the returned state;
-    every other leaf the step changes is a fresh tensor.
+    Returns ``(state, trace)`` (``trace`` is None when ``tr`` is).  The
+    big planes — ``s.mem``, ``s.k_ino_data``, ``tr.buf`` and ``tr.hist`` —
+    are updated in place and shared with the result; every other leaf the
+    step changes is a fresh tensor.
     """
+    traced = tr is not None
     tbl = tables_for(s.pc.device)
     op, rd, rn, rm, sh, cond, sf, imm = fields
     B = s.pc.shape[0]
@@ -194,6 +249,10 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
 
     # -- register reads (reg 31 is XZR for _rr, SP for _rsp) -----------------
     zero = torch.zeros((B,), dtype=I64, device=dev)
+
+    def full(v):
+        return torch.full_like(zero, v)
+
     ra = imm.clamp(0, 31).to(I32)  # madd packs ra into imm
     ridx = torch.stack([rn.clamp(max=30), rm.clamp(max=30),
                         rd.clamp(max=30), ra.clamp(max=30)], dim=1).long()
@@ -273,14 +332,48 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     flag_v = (((fa ^ fb) & (fa ^ res)) < 0).to(I64)
     nzcv = torch.where(subs, flag_n + flag_z + flag_c + flag_v, nzcv0)
 
-    # -- syscalls (emulation off: the legacy stub surface) ------------------
+    # -- syscalls ------------------------------------------------------------
     nr = x8
     in_pt = s.ptrace != 0
-    svc_exec = m_svc
+    en = s.k_enabled != 0  # per-lane guest-kernel gate (0 = legacy stubs)
     false_b = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if traced:
+        # Seccomp-style gate: resolve nr to a per-lane policy action; only
+        # ALLOW lanes (and EMULATE lanes routed into the guest kernel)
+        # reach the sys_* branches.  A later row wins, as in the JAX chain.
+        action = tr.pol_action[:, SLOT_UNKNOWN]
+        pol_arg = tr.pol_arg[:, SLOT_UNKNOWN]
+        pol_slot = full(SLOT_UNKNOWN)
+        emulable = false_b
+        for i, spec in enumerate(opspec.SYSCALLS):
+            hit = nr == spec.nr
+            action = torch.where(hit, tr.pol_action[:, i], action)
+            pol_arg = torch.where(hit, tr.pol_arg[:, i], pol_arg)
+            pol_slot = torch.where(hit, full(i), pol_slot)
+            if spec.emul:
+                emulable = emulable | hit
+        pol_deny = m_svc & (action == POL_DENY)
+        pol_emul = m_svc & (action == POL_EMULATE)
+        pol_kill = m_svc & (action == POL_KILL)
+        # EMULATE on a guest-kernel-backed nr routes into the emulation
+        # service; on anything else it returns the policy constant.
+        emul_route = pol_emul & emulable & en
+        pol_emul_const = pol_emul & ~(emulable & en)
+        svc_exec = m_svc & ((action == POL_ALLOW) | emul_route)
+    else:
+        svc_exec = m_svc
+
+    # Per-kind masks from the spec's syscall rows.  Guest-kernel kinds
+    # split on ``en``: enabled lanes take the fd-table service, disabled
+    # lanes keep the legacy semantics (openat/close return their constant
+    # stubs, the other emulated kinds fall through to -ENOSYS).
     sys_read = sys_write = sys_getpid = sys_exit = sys_sigret = false_b
     sys_const, known = false_b, false_b
     const_val = zero
+    emul_only = {k: false_b for k in (
+        opspec.K_LSEEK, opspec.K_DUP, opspec.K_FSTAT, opspec.K_PIPE2,
+        opspec.K_GETRANDOM, opspec.K_IOCTL)}
+    sys_open = sys_close = false_b
     for spec in opspec.SYSCALLS:
         hit = svc_exec & (nr == spec.nr)
         if spec.kind == opspec.K_IO_READ:
@@ -293,14 +386,27 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
             sys_exit = sys_exit | hit
         elif spec.kind == opspec.K_SIGRETURN:
             sys_sigret = sys_sigret | hit
-        elif spec.kind in (opspec.K_CONST, opspec.K_OPENAT, opspec.K_CLOSE):
-            # openat/close keep their historical constant stubs (3, 0)
+        elif spec.kind in (opspec.K_OPENAT, opspec.K_CLOSE):
+            if spec.kind == opspec.K_OPENAT:
+                sys_open = sys_open | (hit & en)
+            else:
+                sys_close = sys_close | (hit & en)
+            sys_const = sys_const | (hit & ~en)
+            const_val = torch.where(hit & ~en, full(spec.const), const_val)
+        elif spec.kind in emul_only:
+            emul_only[spec.kind] = emul_only[spec.kind] | (hit & en)
+            known = known | (hit & en)  # disabled lanes: -ENOSYS
+            continue
+        else:  # K_CONST
             sys_const = sys_const | hit
-            const_val = torch.where(hit, torch.full_like(zero, spec.const),
-                                    const_val)
-        else:
-            continue  # the other emulated kinds fall through to -ENOSYS
+            const_val = torch.where(hit, full(spec.const), const_val)
         known = known | hit
+    sys_lseek = emul_only[opspec.K_LSEEK]
+    sys_dup = emul_only[opspec.K_DUP]
+    sys_fstat = emul_only[opspec.K_FSTAT]
+    sys_pipe = emul_only[opspec.K_PIPE2]
+    sys_rand = emul_only[opspec.K_GETRANDOM]
+    sys_ioctl = emul_only[opspec.K_IOCTL]
     sys_enosys = svc_exec & ~known
 
     io_buf, io_n = x1, x2
@@ -308,18 +414,44 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     io_ok = (_mem_ok_v(io_buf) & (io_buf + io_n <= L.MEM_LIMIT)
              & (io_n >= 0) & ((io_n & 7) == 0))
     io_start = _widx_v(io_buf)
-    io_do = (sys_read | sys_write) & io_ok
+
+    # First path word for openat lanes, read from the pre-store memory.
+    path_w = torch.where(sys_open, mem[lanes, _widx_v(x1)], zero)
+
+    # -- guest-kernel service (control plane) -------------------------------
+    # Skipped on steps where no lane executes an emulated operation and no
+    # enabled lane reads or writes: neutral() is bit-identical there (the
+    # JAX package's batch-uniform cond).
+    emul_op = (sys_open | sys_close | sys_lseek | sys_dup | sys_fstat
+               | sys_pipe | sys_rand | sys_ioctl)
+    if bool((emul_op | ((sys_read | sys_write) & en)).any()):
+        eff = emul_engine.service(
+            s, en=en, x0=x0, x1=x1, x2=x2, path_w=path_w,
+            io_ok=io_ok, io_n=io_n,
+            sys_open=sys_open, sys_close=sys_close, sys_lseek=sys_lseek,
+            sys_dup=sys_dup, sys_fstat=sys_fstat, sys_pipe=sys_pipe,
+            sys_rand=sys_rand, sys_ioctl=sys_ioctl,
+            sys_read=sys_read, sys_write=sys_write)
+    else:
+        eff = emul_engine.neutral(s, sys_read, sys_write)
+    io_do = (eff.rd_stream | eff.wr_stream) & io_ok
 
     virt = in_pt & (s.virt_getpid != 0)
     svc_x0 = _select(
-        [(sys_read | sys_write,
-          torch.where(io_ok, io_n, torch.full_like(zero, -14))),
-         (sys_getpid,
-          torch.where(virt, torch.full_like(zero, L.VIRT_PID), s.pid)),
+        [(eff.rd_stream | eff.wr_stream,
+          torch.where(io_ok, io_n, full(-14))),
+         (eff.is_ret, eff.ret),
+         (sys_getpid, torch.where(virt, full(L.VIRT_PID), s.pid)),
          (sys_const, const_val),
-         (sys_enosys, torch.full_like(zero, -38))],
+         (sys_enosys, full(-38))],
         zero)
     svc_x0_en = svc_exec & ~(sys_exit | sys_sigret)
+    if traced:
+        # DENY returns -errno, non-routable EMULATE the policy constant;
+        # both skip the kernel branch and fall through to pc+4.
+        svc_x0 = _select([(pol_deny, -pol_arg), (pol_emul_const, pol_arg)],
+                         svc_x0)
+        svc_x0_en = svc_x0_en | pol_deny | pol_emul_const
 
     # -- signal delivery / sigreturn (static 34-word frame window) -----------
     can_sig = dlv & (s.sig_handler != 0) & (s.in_signal == 0)
@@ -328,10 +460,11 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     frame_out = torch.cat(
         [regs0, sp0[:, None], pc0[:, None], nzcv0[:, None]], dim=1)
 
-    # -- memory writes -------------------------------------------------------
-    # JAX parks disabled stores at out-of-range indices and drops them;
-    # torch index_put_ has no drop mode, so only enabled entries are
-    # indexed.  A pair store whose second word faults keeps its first.
+    # -- memory writes, in the JAX order --------------------------------------
+    # stores, sigframe push, emul result words, stream I/O, data mover.
+    # JAX parks disabled writes at out-of-range indices and drops them;
+    # torch index_put_ has no drop mode, so only live entries are indexed.
+    # A pair store whose second word faults keeps its first.
     st_byte = c(memc, opspec.M_STORE_BYTE)
     st1_en = (st_single | st_pair | st_byte) & ok1
     st2_en = st_pair & ok2
@@ -343,7 +476,11 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     if bool(can_sig.any()):
         mem[can_sig, sig_win] = frame_out[can_sig]
 
-    # Syscall I/O fill/sum over words [io_start, io_start + io_k) of each
+    mem_flat = mem.view(-1)
+    live = eff.scat_idx < L.MEM_WORDS * B  # parked entries sit past the end
+    mem_flat[eff.scat_idx[live]] = eff.scat_val[live]
+
+    # Stream I/O fill/sum over words [io_start, io_start + io_k) of each
     # io lane — the net effect of the JAX engine's clamped 512-word windows
     # (io_ok keeps the span inside the lane).  The write sum reads memory
     # after this step's stores and sigframe push.
@@ -363,6 +500,13 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
         rows = io_l[:, None].expand_as(pos)
         mem[rows[wr], pos[wr]] = fill[wr]
 
+    # Guest-kernel bulk data (file/pipe/proc reads and writes, getrandom
+    # fills); /proc rows come from the pre-step counters.
+    k_ino_data = eff.kern.ino_data
+    if bool(eff.fio_do.any()):
+        emul_engine.run_data_loop(mem_flat, k_ino_data.view(-1),
+                                  emul_engine.proc_rows(s).reshape(-1), eff)
+
     # Sigreturn frame read from the FINAL memory (a sigreturn lane writes
     # nothing in its own step, so this is its pre-step frame).
     frame_in = torch.zeros((B, SIGFRAME_WORDS), dtype=I64, device=dev)
@@ -372,10 +516,10 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     # -- register writes (slot order mirrors the scalar handler order) ------
     col = torch.arange(31, device=dev)[None, :]
 
-    def apply_slot(regs, en, idxv, val, sp, sp_ok):
-        hit = en[:, None] & (idxv[:, None] == col)  # idx 31 never matches
+    def apply_slot(regs, en_, idxv, val, sp, sp_ok):
+        hit = en_[:, None] & (idxv[:, None] == col)  # idx 31 never matches
         regs = torch.where(hit, val[:, None], regs)
-        sp = torch.where(en & sp_ok & (idxv == 31), val, sp)
+        sp = torch.where(en_ & sp_ok & (idxv == 31), val, sp)
         return regs, sp
 
     regs, sp = apply_slot(regs0, slotA_en, slotA_idx, slotA_val, sp0,
@@ -386,9 +530,8 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
 
     regs[:, 0] = torch.where(svc_x0_en, svc_x0, regs[:, 0])
     regs[:, 0] = torch.where(can_sig, signo, regs[:, 0])
-    regs[:, 1] = torch.where(can_sig, torch.full_like(zero, L.SIGFRAME),
-                             regs[:, 1])
-    sp = torch.where(can_sig, torch.full_like(zero, L.SIGSTACK_TOP), sp)
+    regs[:, 1] = torch.where(can_sig, full(L.SIGFRAME), regs[:, 1])
+    sp = torch.where(can_sig, full(L.SIGSTACK_TOP), sp)
 
     regs = torch.where(sys_sigret[:, None], frame_in[:, :31], regs)
     sp = torch.where(sys_sigret, frame_in[:, 31], sp)
@@ -400,6 +543,8 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     taken_bc = opspec.cond_holds(nzcv0, cond, tbl.COND_MASK)  # OLD flags
     svc_pc = torch.where(sys_exit, pc0,
                          torch.where(sys_sigret, frame_in[:, 32] + 4, pc4))
+    if traced:
+        svc_pc = torch.where(pol_kill, pc0, svc_pc)  # KILL parks like exit
     pc_new = _select(
         [(c(pcc, opspec.P_REL), br_target),
          (c(pcc, opspec.P_IND), rn_rr),
@@ -418,49 +563,101 @@ def exec_lanes(fields, s: MachineState) -> MachineState:
     bad_byte = byte_op & ~ok1
     mem_bad = bad_single | bad_pair | bad_byte
 
-    def code(v):
-        return torch.full_like(zero, v)
-
     halted = s.halted
-    halted = torch.where(m_null, code(HALT_SEGV), halted)
-    halted = torch.where(mem_bad, code(HALT_BADMEM), halted)
-    halted = torch.where(m_hlt | sys_exit, code(HALT_EXIT), halted)
-    halted = torch.where(trap_fail, code(HALT_TRAP), halted)
+    halted = torch.where(m_null, full(HALT_SEGV), halted)
+    halted = torch.where(mem_bad, full(HALT_BADMEM), halted)
+    halted = torch.where(m_hlt | sys_exit, full(HALT_EXIT), halted)
+    halted = torch.where(trap_fail, full(HALT_TRAP), halted)
     exit_code = torch.where(m_hlt | sys_exit, x0, s.exit_code)
     fault_pc = torch.where(m_null | mem_bad | trap_fail, pc0, s.fault_pc)
+    if traced:
+        halted = torch.where(pol_kill, full(HALT_KILL), halted)
+        fault_pc = torch.where(pol_kill, pc0, fault_pc)
 
     # -- bookkeeping ---------------------------------------------------------
     cycles = s.cycles + torch.where(act, tbl.COST_TABLE[opi], zero)
-    cycles = cycles + torch.where(m_svc, code(cm.KERNEL_CROSS), zero)
-    cycles = cycles + torch.where(m_svc & in_pt, code(2 * cm.PTRACE_STOP),
+    cycles = cycles + torch.where(m_svc, full(cm.KERNEL_CROSS), zero)
+    cycles = cycles + torch.where(m_svc & in_pt, full(2 * cm.PTRACE_STOP),
                                   zero)
     # torch // floors like JAX's (io_n may be negative)
     cycles = cycles + torch.where(sys_read | sys_write,
                                   io_n // cm.IO_BYTES_PER_CYCLE, zero)
-    cycles = cycles + torch.where(can_sig, code(cm.SIGNAL_DELIVERY), zero)
+    cycles = cycles + torch.where(can_sig, full(cm.SIGNAL_DELIVERY), zero)
     icount = s.icount + act.to(I64)
     hook_count = s.hook_count + (m_svc & in_pt).to(I64)
-    in_off = s.in_off + torch.where(sys_read & io_ok, io_n, zero)
-    out_count = s.out_count + torch.where(sys_write & io_ok, io_n, zero)
-    out_sum = s.out_sum + torch.where(sys_write & io_ok, io_sum, zero)
-    in_signal = torch.where(can_sig, code(1),
+    # stream effects follow the service routing: on legacy lanes
+    # rd_stream/wr_stream are the raw masks
+    in_off = s.in_off + torch.where(eff.rd_stream & io_ok, io_n, zero)
+    out_count = s.out_count + torch.where(eff.wr_stream & io_ok, io_n, zero)
+    out_sum = s.out_sum + torch.where(eff.wr_stream & io_ok, io_sum, zero)
+    in_signal = torch.where(can_sig, full(1),
                             torch.where(sys_sigret, zero, s.in_signal))
     enosys_count = s.enosys_count + sys_enosys.to(I64)
+    emul_served = s.emul_served + eff.served.to(I64)
 
+    # -- trace record append (traced path only) ------------------------------
+    if traced:
+        cap = tr.buf.shape[2]
+        if bool(m_svc.any()):
+            ret = _select(
+                [(pol_deny, -pol_arg), (pol_emul_const, pol_arg),
+                 (pol_kill, zero), (sys_exit, x0),
+                 (sys_sigret, frame_in[:, 0])],
+                svc_x0)  # routed EMULATE lanes: svc_x0 is the emulated ret
+            verdict = _select(
+                [(pol_deny, full(POL_DENY)), (pol_emul, full(POL_EMULATE)),
+                 (pol_kill, full(POL_KILL)),
+                 (sys_enosys, full(VERDICT_UNKNOWN))],
+                zero)  # POL_ALLOW
+            # JAX's % floors (count < base on a scrambled carry); so does
+            # torch.remainder
+            pos = (lanes * (2 * cap) + tr.hot * cap
+                   + torch.remainder(tr.count - tr.base, cap))
+            rows = torch.stack([s.icount, pc0, nr, x0, x1, x2, ret, verdict],
+                               dim=1)
+            _scatter_drop(tr.buf.view(B * 2 * cap, REC_WORDS), pos, m_svc,
+                          rows)
+            hpos = (lanes * (N_POLICY_SLOTS * N_VERDICTS)
+                    + pol_slot * N_VERDICTS + verdict)
+            hflat = tr.hist.view(-1)
+            hflat[hpos[m_svc]] += 1
+        tr = tr._replace(
+            count=tr.count + m_svc.to(I64),
+            deny_count=tr.deny_count + pol_deny.to(I64),
+            emul_count=tr.emul_count + pol_emul.to(I64),
+            kill_count=tr.kill_count + pol_kill.to(I64))
+
+    kern = eff.kern
     return s._replace(
         regs=regs, sp=sp, pc=pc, nzcv=nzcv, mem=mem, cycles=cycles,
         icount=icount, halted=halted, exit_code=exit_code, fault_pc=fault_pc,
         in_signal=in_signal, hook_count=hook_count, in_off=in_off,
-        out_count=out_count, out_sum=out_sum,
-        enosys_count=enosys_count)
+        out_count=out_count, out_sum=out_sum, enosys_count=enosys_count,
+        emul_served=emul_served,
+        k_rng=kern.rng, k_fd_ofd=kern.fd_ofd, k_ofd_kind=kern.ofd_kind,
+        k_ofd_ino=kern.ofd_ino, k_ofd_off=kern.ofd_off,
+        k_ofd_flags=kern.ofd_flags, k_ofd_ref=kern.ofd_ref,
+        k_ino_kind=kern.ino_kind, k_ino_name=kern.ino_name,
+        k_ino_size=kern.ino_size, k_ino_data=k_ino_data), tr
 
 
-def _step_core(img: FleetImages, ids: torch.Tensor,
-               s: MachineState) -> MachineState:
+def _scatter_drop(flat: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """``flat[idx[b]] = rows[b]`` where ``mask[b]``, with JAX's
+    ``mode="drop"`` indexing: a negative index counts from the end, and
+    one still out of range is dropped."""
+    n = flat.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    live = mask & (idx >= 0) & (idx < n)
+    flat[idx[live]] = rows[live]
+
+
+def _step_core(img: FleetImages, ids: torch.Tensor, s: MachineState,
+               tr: Optional[TraceState] = None):
     """One masked step for every lane (the identity on halted and
     out-of-fuel lanes): fetch/decode, then the spec-generated executor
-    body.  Unlike the JAX package's, it takes and returns no trace."""
-    return exec_lanes(_fetch(img, ids, s.pc), s)
+    body.  Returns ``(state, trace)``, as the JAX package's does."""
+    return exec_lanes(_fetch(img, ids, s.pc), s, tr)
 
 
 # ---------------------------------------------------------------------------
@@ -510,8 +707,8 @@ def _fleet_inputs(imgs, states, img_ids, device):
 
 
 def run_fleet(imgs, states, img_ids=None, *, chunk: int = DEFAULT_CHUNK,
-              shard: bool = False, trace=None, engine: str = "xla",
-              device=None) -> MachineState:
+              shard: bool = False, trace: Optional[TraceState] = None,
+              engine: str = "xla", device=None):
     """Run every lane to halt (or out of fuel, patched to ``HALT_FUEL``).
 
     ``imgs``: decode tables (``FleetImages``, a stacked ``DecodedImage`` or
@@ -521,35 +718,42 @@ def run_fleet(imgs, states, img_ids=None, *, chunk: int = DEFAULT_CHUNK,
     megastep wrapper — the CUDA kernel on the card, its plain version on
     the CPU.  Results are invariant to ``chunk``.
 
+    With ``trace`` (a :class:`TraceState`) every executed svc appends a
+    ring record and the per-lane policy tables gate the syscall branches;
+    returns ``(states, trace)``.  Under all-ALLOW policies the machine
+    states equal an untraced run's.
+
     ``device=None`` means the card; inputs are moved there and the carry
-    is updated in place.  ``trace`` and ``shard`` are later slices and
-    raise."""
+    is updated in place.  ``shard`` is a later slice and raises."""
     _check_engine(engine, shard=shard)
-    if trace is not None:
-        raise NotImplementedError(_TRACE_HINT)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     from ..kernels.megastep import ops as mops  # lazy: kernel layer
     imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
-    return mops.run(imgs, img_ids, states, chunk=int(chunk))
+    if trace is None:
+        return mops.run(imgs, img_ids, states, chunk=int(chunk))
+    return mops.run(imgs, img_ids, states, traces_to(trace, states.pc.device),
+                    chunk=int(chunk))
 
 
 def run_fleet_span(imgs, states, img_ids, *, steps: int,
-                   chunk: int = DEFAULT_CHUNK, trace=None,
-                   engine: str = "xla", device=None) -> MachineState:
+                   chunk: int = DEFAULT_CHUNK,
+                   trace: Optional[TraceState] = None,
+                   engine: str = "xla", device=None):
     """One bounded generation: up to ``steps`` masked steps (rounded up to
     a whole number of chunks), early exit when every lane halts.  Lanes
-    out of fuel stay ``RUNNING`` (no ``HALT_FUEL`` patch)."""
+    out of fuel stay ``RUNNING`` (no ``HALT_FUEL`` patch).  With ``trace``
+    returns ``(states, trace)``, as :func:`run_fleet`."""
     _check_engine(engine)
-    if trace is not None:
-        raise NotImplementedError(_TRACE_HINT)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     from ..kernels.megastep import ops as mops  # lazy: kernel layer
     imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
-    return mops.span(imgs, img_ids, states, chunk=int(chunk),
+    if trace is not None:
+        trace = traces_to(trace, states.pc.device)
+    return mops.span(imgs, img_ids, states, trace, chunk=int(chunk),
                      span=-(-steps // chunk))
 
 

@@ -1,7 +1,7 @@
 """Carry state and decode tables across frameworks as numpy arrays.
 
 ``{field: np.ndarray}`` dicts (as ``np.asarray`` of each leaf of a JAX
-``MachineState`` / ``FleetImages`` gives them) become the port's tensors
+``MachineState`` / ``TraceState`` / ``FleetImages`` gives them) become the port's tensors
 on a device, and back.  This is how one packed state is handed to both
 packages, so that executor parity is tested apart from host-side
 preparation.
@@ -13,7 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .fleet import FleetImages
+from .fleet import FleetImages, TraceState
 from .machine import MachineState
 
 
@@ -35,6 +35,13 @@ def state_from_numpy(leaves: Mapping[str, np.ndarray],
 def state_to_numpy(s: MachineState) -> dict:
     """``{field: np.ndarray}`` host copies of every leaf."""
     return {f: getattr(s, f).cpu().numpy() for f in MachineState._fields}
+
+
+def trace_from_numpy(leaves: Mapping[str, np.ndarray],
+                     device="cpu") -> TraceState:
+    """A ``TraceState`` on ``device`` from one array per field."""
+    return TraceState(*(_tensor(leaves[f], device)
+                        for f in TraceState._fields))
 
 
 def images_from_numpy(tables: Mapping[str, np.ndarray],

@@ -286,3 +286,4 @@ def slot_of(nr: int) -> int:
 SYS_NR_NP = np.asarray([s.nr for s in SYSCALLS], np.int64)
 SYS_KIND_NP = np.asarray([s.kind for s in SYSCALLS], np.int64)
 SYS_CONST_NP = np.asarray([s.const for s in SYSCALLS], np.int64)
+SYS_EMUL_NP = np.asarray([s.emul for s in SYSCALLS], np.int64)

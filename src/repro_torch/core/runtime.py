@@ -114,6 +114,23 @@ def run_prepared(pp: PreparedProcess, *, fuel: int = 2_000_000,
                        device=device)
 
 
+def fleet_trace(pps: Sequence[PreparedProcess], *,
+                cap: Optional[int] = None, device=None) -> F.TraceState:
+    """The trace carry for a fleet of prepared processes: one ring per lane
+    plus that lane's policy tables compiled from its ``HookConfig.policy``
+    (empty policies compile to all-ALLOW).  ``cap`` defaults to the
+    largest ``trace_cap`` among the configs; ``device=None`` means the
+    card."""
+    from ..trace import recorder  # local: repro_torch.trace depends on core
+    if cap is None:
+        caps = [pp.cfg.trace_cap for pp in pps if pp.cfg is not None]
+        cap = max(caps) if caps else F.DEFAULT_TRACE_CAP
+    pols = [pp.cfg.policy if pp.cfg is not None and pp.cfg.policy else None
+            for pp in pps]
+    return recorder.make_trace_state(len(pps), cap, policies=pols,
+                                     device=device)
+
+
 def _image_digest(pp: PreparedProcess) -> bytes:
     return hashlib.sha1(
         np.ascontiguousarray(pp.image.words).tobytes()).digest()
@@ -129,14 +146,14 @@ def pack_fleet(pps: Sequence[PreparedProcess], *,
 
     Decode tables are deduplicated by image content, so a census sweeping
     iteration counts or mechanisms over shared binaries ships each
-    distinct image to the device once.  ``table`` (incremental admission)
-    and ``trace`` are later slices and raise."""
+    distinct image to the device once.  ``trace=True`` appends a fourth
+    element: the :class:`fleet.TraceState` carry from :func:`fleet_trace`.
+    The return arity depends only on this argument.  ``table``
+    (incremental admission) is a later slice and raises."""
     if table is not None:
         raise NotImplementedError(
             "table= (FleetImageTable admission) is not ported yet "
             "(lane-management slice)")
-    if trace:
-        raise NotImplementedError(F._TRACE_HINT)
     dev = M.resolve_device(device)
     ids = np.zeros(len(pps), np.int32)
     digests: Dict[bytes, int] = {}
@@ -153,7 +170,10 @@ def pack_fleet(pps: Sequence[PreparedProcess], *,
     states = F.states_to(F.stack_states(
         [initial_state(pp, fuel=fuel, regs=rg) for pp, rg in zip(pps, regs)]),
         dev)
-    return imgs, torch.from_numpy(ids).to(dev), states
+    ids = torch.from_numpy(ids).to(dev)
+    if not trace:
+        return imgs, ids, states
+    return imgs, ids, states, fleet_trace(pps, device=dev)
 
 
 def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
@@ -166,7 +186,7 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
                        compact_stats: Optional[dict] = None,
                        policy_overrides: Optional[Dict[int, Sequence]] = None,
                        engine: Optional[str] = None,
-                       device=None) -> M.MachineState:
+                       device=None):
     """Run every prepared process to completion as one fleet.
 
     ``chunk`` defaults to the first process's ``HookConfig.fleet_chunk``
@@ -175,9 +195,11 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
     ``run_prepared(pps[i], fuel=fuel, regs=regs[i])``.  ``device=None``
     means the card.
 
-    Ported for untraced lanes with ``HookConfig(emul_enabled=False)``;
-    ``trace``, ``shard``, ``compact`` and ``policy_overrides`` are later
-    slices and raise, as do lanes with emulation on.
+    With ``trace=True`` returns ``(states, trace_state)``: the syscall
+    rings and policy verdicts of the whole fleet.  ``policy_overrides``
+    (lane -> ``PolicyRule`` list; requires ``trace=True``) replaces those
+    lanes' policy rows in the trace carry before the run.  ``shard`` and
+    ``compact`` are later slices and raise.
     """
     cfg = next((pp.cfg for pp in pps if pp.cfg is not None), None)
     if compact is None:
@@ -185,20 +207,30 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
     if compact or compact_stats is not None:
         raise NotImplementedError(
             "compact=True is not ported yet (compaction slice)")
-    if policy_overrides:
-        raise NotImplementedError(
-            "policy_overrides need traced fleets, which are not ported yet "
-            "(trace slice, K2)")
     if engine is None:
         engine = cfg.fleet_engine if cfg is not None else "xla"
     F._check_engine(engine, shard=shard)
-    if trace:
-        raise NotImplementedError(F._TRACE_HINT)
+    if policy_overrides and not trace:
+        raise ValueError("policy_overrides require trace=True")
     if chunk is None:
         chunk = cfg.fleet_chunk if cfg is not None else F.DEFAULT_CHUNK
-    imgs, ids, states = pack_fleet(pps, fuel=fuel, regs=regs, device=device)
+    packed = pack_fleet(pps, fuel=fuel, regs=regs, trace=trace,
+                        device=device)
+    imgs, ids, states = packed[:3]
+    ts = packed[3] if trace else None
+    if policy_overrides:
+        from ..trace import policy as TP  # local: repro_torch.trace uses core
+        lanes = sorted(policy_overrides)
+        bad = [ln for ln in lanes if not 0 <= ln < len(pps)]
+        if bad:
+            raise ValueError(
+                f"policy_overrides lanes {bad} out of range for "
+                f"{len(pps)} lanes")
+        pa, pg = TP.policy_rows([policy_overrides[ln] for ln in lanes])
+        ts.pol_action[lanes] = torch.from_numpy(pa).to(ts.pol_action.device)
+        ts.pol_arg[lanes] = torch.from_numpy(pg).to(ts.pol_arg.device)
     return F.run_fleet(imgs, states, ids, chunk=chunk, engine=engine,
-                       device=states.pc.device)
+                       trace=ts, device=states.pc.device)
 
 
 def hook_invocations(state: M.MachineState) -> int:

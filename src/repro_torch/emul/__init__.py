@@ -1,1 +1,2 @@
-"""Guest-kernel emulation carry (layout only; the service is not ported yet)."""
+"""Guest-kernel emulation: the carry layout (:mod:`.state`) and the
+batched service and data mover (:mod:`.engine`)."""

@@ -3,9 +3,9 @@
 The guest-kernel emulation state rides as flat ``k_``-prefixed int64
 leaves of :class:`repro_torch.core.machine.MachineState`, exactly as in
 the JAX package, so both packages carry the same 34 leaves.  This module
-owns their layout and the fresh (preopened) values; the emulation service
-that updates them is not ported yet, and the port's executors refuse
-lanes with ``k_enabled != 0``.
+owns their layout, the fresh (preopened) values and the typed
+:class:`KernelState` view; :mod:`repro_torch.emul.engine` is the service
+that updates them.
 
 Shapes (``B`` = lane count; scalar states drop the leading axis):
 
@@ -20,6 +20,8 @@ Fds 0..3 are preopened: 0 and 3 as the modelled input stream, 1 and 2 as
 the modelled output sink.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,6 +95,34 @@ N_PREOPEN = len(_PREOPEN_KINDS)
 KERN_FIELDS = ("k_enabled", "k_rng", "k_fd_ofd", "k_ofd_kind", "k_ofd_ino",
                "k_ofd_off", "k_ofd_flags", "k_ofd_ref", "k_ino_kind",
                "k_ino_name", "k_ino_size", "k_ino_data")
+
+
+class KernelState(NamedTuple):
+    """The typed view over MachineState's ``k_`` leaves (same order as
+    :data:`KERN_FIELDS`)."""
+
+    enabled: torch.Tensor
+    rng: torch.Tensor
+    fd_ofd: torch.Tensor
+    ofd_kind: torch.Tensor
+    ofd_ino: torch.Tensor
+    ofd_off: torch.Tensor
+    ofd_flags: torch.Tensor
+    ofd_ref: torch.Tensor
+    ino_kind: torch.Tensor
+    ino_name: torch.Tensor
+    ino_size: torch.Tensor
+    ino_data: torch.Tensor
+
+
+def kern_of(s) -> KernelState:
+    """Project a MachineState (scalar or batched) to its KernelState."""
+    return KernelState(*(getattr(s, f) for f in KERN_FIELDS))
+
+
+def with_kern(s, k: KernelState):
+    """A MachineState with its ``k_`` leaves replaced from ``k``."""
+    return s._replace(**dict(zip(KERN_FIELDS, k)))
 
 
 def _preopen_np(n: int):

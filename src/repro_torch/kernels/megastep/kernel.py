@@ -30,9 +30,11 @@ from ...core import costmodel as cm
 from ...core import layout as L
 from ...core import machine as M
 from ...core import opspec
-from ...core.fleet import FleetImages
+from ...core.fleet import REC_WORDS, FleetImages, TraceState
 from ...core.isa import Op
 from ...core.machine import MachineState
+from ...emul import state as emul_state
+from ...emul.engine import W_KIO
 
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "megastep.cu"
@@ -53,19 +55,40 @@ def consts_header() -> str:
         "SIGFRAME_IDX": M._SIGFRAME_IDX, "MAX_IO_WORDS": 4096,
         "RUNNING": M.RUNNING, "HALT_EXIT": M.HALT_EXIT,
         "HALT_SEGV": M.HALT_SEGV, "HALT_TRAP": M.HALT_TRAP,
-        "HALT_BADMEM": M.HALT_BADMEM,
+        "HALT_BADMEM": M.HALT_BADMEM, "HALT_KILL": M.HALT_KILL,
         "KERNEL_CROSS": cm.KERNEL_CROSS, "PTRACE_STOP": cm.PTRACE_STOP,
         "IO_BYTES_PER_CYCLE": cm.IO_BYTES_PER_CYCLE,
         "SIGNAL_DELIVERY": cm.SIGNAL_DELIVERY,
         "OP_NULLPAGE": int(Op.NULLPAGE), "N_OPS": int(Op.N_OPS),
         "N_SYSCALLS": len(opspec.SYSCALLS),
         "N_LEAVES": len(MachineState._fields),
+        "N_TRACE_LEAVES": len(TraceState._fields),
+        # the guest-kernel layout (core/layout.py, emul/state.py)
+        "MAX_FDS": L.MAX_FDS, "MAX_INODES": L.MAX_INODES,
+        "FILE_WORDS": L.FILE_WORDS, "FILE_BYTES": L.FILE_BYTES,
+        "PROC_WORDS": L.PROC_WORDS, "W_KIO": W_KIO,
+        "O_CREAT": L.O_CREAT, "O_EXCL": L.O_EXCL, "O_TRUNC": L.O_TRUNC,
+        "O_APPEND": L.O_APPEND, "SEEK_SET": L.SEEK_SET,
+        "SEEK_CUR": L.SEEK_CUR, "SEEK_END": L.SEEK_END,
+        "STAT_WORDS": emul_state.STAT_WORDS,
+        "PROC_KEY": emul_state.PROC_KEY, "DEV_KEY": emul_state.DEV_KEY,
+        # the trace carry (core/fleet.py, core/opspec.py)
+        "REC_WORDS": REC_WORDS, "SLOT_UNKNOWN": opspec.SLOT_UNKNOWN,
+        "N_POLICY_SLOTS": opspec.N_POLICY_SLOTS,
+        "N_VERDICTS": opspec.N_VERDICTS,
+        "VERDICT_UNKNOWN": opspec.VERDICT_UNKNOWN,
     }
-    for prefix in ("A_", "F_", "M_", "P_", "K_"):
+    for prefix in ("A_", "F_", "M_", "P_", "K_", "POL_"):
         defs.update({k: v for k, v in vars(opspec).items()
                      if k.startswith(prefix) and isinstance(v, int)
                      and not isinstance(v, bool)})
+    for prefix in ("FD_", "INO_", "ASC_IOCTL_"):
+        defs.update({k: v for k, v in vars(emul_state).items()
+                     if k.startswith(prefix) and isinstance(v, int)})
+    # errnos under a prefix of their own: <errno.h> may define the names
+    defs.update({f"EMUL_{k}": v for k, v in emul_state.ERRNOS.items()})
     defs.update({f"LEAF_{f}": i for i, f in enumerate(MachineState._fields)})
+    defs.update({f"TLEAF_{f}": i for i, f in enumerate(TraceState._fields)})
     lines = ["// Generated by repro_torch/kernels/megastep/kernel.py.",
              "#pragma once"]
     lines += [f"#define {k} ((int64_t){v}LL)" if abs(v) > 2**31 - 1
@@ -114,9 +137,11 @@ class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "packed", "imm", "ids", "alu", "wb_sp", "wb_lr", "flags", "memc",
         "addr_post", "wb_base", "pcc", "segv", "exit_", "signo", "cost",
-        "cond_mask", "sys_nr", "sys_kind", "sys_const")]
+        "cond_mask", "sys_nr", "sys_kind", "sys_const", "sys_emul")]
         + [("leaf", ctypes.c_void_p * len(MachineState._fields)),
-           ("n_lanes", ctypes.c_int64), ("chunk", ctypes.c_int64)])
+           ("tleaf", ctypes.c_void_p * len(TraceState._fields)),
+           ("n_lanes", ctypes.c_int64), ("chunk", ctypes.c_int64),
+           ("trace_cap", ctypes.c_int64)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,19 +159,20 @@ def load_library():
 
 @functools.lru_cache(maxsize=None)
 def device_tables(device: torch.device):
-    """The 13 spec columns plus the 3 syscall-row columns on ``device``."""
+    """The 13 spec columns plus the 4 syscall-row columns on ``device``."""
     syscalls = tuple(torch.as_tensor(a).to(device) for a in
                      (opspec.SYS_NR_NP, opspec.SYS_KIND_NP,
-                      opspec.SYS_CONST_NP))
+                      opspec.SYS_CONST_NP, opspec.SYS_EMUL_NP))
     return tuple(opspec.spec_tables(device)) + syscalls
 
 
 def megastep_chunk_cuda(imgs: FleetImages, ids: torch.Tensor,
-                        s: MachineState, *, chunk: int,
-                        block: Optional[int] = None) -> None:
+                        s: MachineState, tr: Optional[TraceState] = None, *,
+                        chunk: int, block: Optional[int] = None) -> None:
     """Launch the kernel on PyTorch's current stream: ``chunk`` steps of
-    every lane, the carry updated in place.  The caller has validated the
-    operands (:func:`repro_torch.kernels.megastep.ops.megastep_chunk`)."""
+    every lane, the carry (and the trace carry ``tr``, when given) updated
+    in place.  The caller has validated the operands
+    (:func:`repro_torch.kernels.megastep.ops.megastep_chunk`)."""
     dev = s.pc.device
     block = DEFAULT_BLOCK if block is None else int(block)
     lib = load_library()
@@ -154,13 +180,17 @@ def megastep_chunk_cuda(imgs: FleetImages, ids: torch.Tensor,
     args.packed = imgs.packed.data_ptr()
     args.imm = imgs.imm.data_ptr()
     args.ids = ids.data_ptr()
-    names = [f[0] for f in _Args._fields_[3:19]]
+    names = [f[0] for f in _Args._fields_[3:20]]
     for name, t in zip(names, device_tables(dev)):
         setattr(args, name, t.data_ptr())
     for i, leaf in enumerate(s):
         args.leaf[i] = leaf.data_ptr()
+    if tr is not None:
+        for i, leaf in enumerate(tr):
+            args.tleaf[i] = leaf.data_ptr()
     args.n_lanes = int(s.pc.shape[0])
     args.chunk = int(chunk)
+    args.trace_cap = 0 if tr is None else int(tr.buf.shape[2])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.megastep_launch(ctypes.byref(args), block, stream)

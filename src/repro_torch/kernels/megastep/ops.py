@@ -3,13 +3,15 @@
 :func:`megastep_chunk` is the one entry to the kernel: for CPU tensors it
 runs the plain version (:mod:`.ref`); for CUDA tensors it launches the
 CUDA kernel (:mod:`.kernel`) or raises — there is no fallback.  Either way
-the carry is updated in place and returned.  ``megastep_chunk.launches``
-counts kernel launches (it stays 0 on the CPU).
+the carry (and the trace carry, when given) is updated in place and
+returned.  ``megastep_chunk.launches`` counts kernel launches (it stays 0
+on the CPU).
 
 :func:`run` and :func:`span` mirror the JAX package's ``jitted_run`` /
-``jitted_span``: they loop chunks while any lane is alive (one host sync
-per chunk); ``run`` patches ``HALT_FUEL`` afterwards, ``span`` stops after
-at most ``span`` chunks and does not.
+``jitted_span`` and their traced twins: they check the operands once,
+then loop chunks while any lane is alive (one host sync per chunk);
+``run`` patches ``HALT_FUEL`` afterwards, ``span`` stops after at most
+``span`` chunks and does not.
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ def _check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _validate(imgs: F.FleetImages, ids, s: MachineState, chunk: int,
-              block: Optional[int]):
+def _validate(imgs: F.FleetImages, ids, s: MachineState,
+              tr: Optional[F.TraceState], chunk: int, block: Optional[int]):
+    """Types, shapes, devices and contiguity: no host sync."""
     if not isinstance(s, MachineState):
         raise TypeError("s must be a MachineState")
     dev = s.pc.device
@@ -67,54 +70,88 @@ def _validate(imgs: F.FleetImages, ids, s: MachineState, chunk: int,
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if block is not None and not 1 <= int(block) <= 1024:
         raise ValueError(f"block must be in [1, 1024], got {block}")
-    bad_ids, emul_on = (torch.stack([(ids < 0).any() | (ids >= G).any(),
-                                     (s.k_enabled != 0).any()]).tolist())
-    if bad_ids:
+    if tr is None:
+        return
+    if not isinstance(tr, F.TraceState):
+        raise TypeError("tr must be a TraceState")
+    cap = int(tr.buf.shape[2]) if tr.buf.dim() == 4 else 0
+    if cap < 1:
+        raise ValueError("tr.buf must be [B, 2, CAP, REC_WORDS], CAP >= 1")
+    shapes = {"buf": (B, 2, cap, F.REC_WORDS),
+              "hist": (B, F.N_POLICY_SLOTS, F.N_VERDICTS),
+              "pol_action": (B, F.N_POLICY_SLOTS),
+              "pol_arg": (B, F.N_POLICY_SLOTS)}
+    for name, leaf in zip(F.TraceState._fields, tr):
+        _check_tensor(f"tr.{name}", leaf,
+                      torch.int32 if name == "pol_action" else torch.int64,
+                      shapes.get(name, (B,)), dev)
+
+
+def _check_ids(imgs: F.FleetImages, ids):
+    """Image ids in range: one host sync."""
+    G = int(imgs.packed.shape[0])
+    if bool(((ids < 0) | (ids >= G)).any()):
         raise ValueError(f"ids must index the {G} image rows")
-    if emul_on:
-        raise NotImplementedError(F._EMUL_HINT)
 
 
 def megastep_chunk(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
-                   *, chunk: int, block: Optional[int] = None
-                   ) -> MachineState:
+                   tr: Optional[F.TraceState] = None, *, chunk: int,
+                   block: Optional[int] = None):
     """``chunk`` masked fleet steps for every lane, in place.
 
     Bit-identical to ``chunk`` iterations of the JAX package's
-    ``fleet._step_core`` on untraced, emulation-off lanes.  ``block`` is
-    the kernel's threads (lanes) per block; the plain version ignores it.
+    ``fleet._step_core``, with the guest-kernel service on the lanes that
+    have it enabled and, with ``tr``, the trace ring and policy gate.
+    ``block`` is the kernel's threads (lanes) per block; the plain version
+    ignores it.  Returns ``s``, or ``(s, tr)`` with a trace carry.
     """
-    _validate(imgs, ids, s, chunk, block)
+    _validate(imgs, ids, s, tr, chunk, block)
+    _check_ids(imgs, ids)
+    return _chunk(imgs, ids, s, tr, int(chunk), block)
+
+
+def _chunk(imgs, ids, s, tr, chunk, block):
+    """One chunk on checked operands: the plain version on the CPU, one
+    counted kernel launch on the card."""
     if s.pc.device.type == "cpu":
-        out = megastep_chunk_ref(imgs, ids, s, chunk=int(chunk))
-        for dst, src in zip(s, out):
+        out = megastep_chunk_ref(imgs, ids, s, tr, chunk=chunk)
+        pairs = zip(s, out) if tr is None else zip(
+            (*s, *tr), (*out[0], *out[1]))
+        for dst, src in pairs:
             if src is not dst:
                 dst.copy_(src)
-        return s
-    from .kernel import megastep_chunk_cuda  # lazy: builds at first use
-    megastep_chunk_cuda(imgs, ids, s, chunk=int(chunk), block=block)
-    megastep_chunk.launches += 1
-    return s
+    else:
+        from .kernel import megastep_chunk_cuda  # lazy: builds at first use
+        megastep_chunk_cuda(imgs, ids, s, tr, chunk=chunk, block=block)
+        megastep_chunk.launches += 1
+    return s if tr is None else (s, tr)
 
 
 megastep_chunk.launches = 0
 
 
-def run(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState, *,
-        chunk: int, block: Optional[int] = None) -> MachineState:
-    """Run every lane to halt (or out of fuel, patched to HALT_FUEL)."""
+def run(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
+        tr: Optional[F.TraceState] = None, *, chunk: int,
+        block: Optional[int] = None):
+    """Run every lane to halt (or out of fuel, patched to HALT_FUEL).
+    Returns ``s``, or ``(s, tr)`` with a trace carry."""
+    _validate(imgs, ids, s, tr, chunk, block)
+    _check_ids(imgs, ids)
     while bool(F._alive(s).any()):
-        s = megastep_chunk(imgs, ids, s, chunk=chunk, block=block)
+        _chunk(imgs, ids, s, tr, int(chunk), block)
     s.halted.copy_(F._patch_fuel(s).halted)
-    return s
+    return s if tr is None else (s, tr)
 
 
-def span(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState, *,
-         chunk: int, span: int, block: Optional[int] = None) -> MachineState:
+def span(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
+         tr: Optional[F.TraceState] = None, *, chunk: int, span: int,
+         block: Optional[int] = None):
     """At most ``span`` chunks, early exit when every lane halts; no
-    HALT_FUEL patch."""
+    HALT_FUEL patch.  Returns ``s``, or ``(s, tr)`` with a trace carry."""
+    _validate(imgs, ids, s, tr, chunk, block)
+    _check_ids(imgs, ids)
     k = 0
     while k < span and bool(F._alive(s).any()):
-        s = megastep_chunk(imgs, ids, s, chunk=chunk, block=block)
+        _chunk(imgs, ids, s, tr, int(chunk), block)
         k += 1
-    return s
+    return s if tr is None else (s, tr)

@@ -165,7 +165,7 @@ def test_step_fuzz_matches_jax(packed, seed):
     want = {f: np.asarray(getattr(want, f)) for f in JMachineState._fields}
     s = interop.state_from_numpy(leaves, "cpu")
     for _ in range(FUZZ_STEPS):
-        s = fleet._step_core(packed["timgs"], packed["tids"], s)
+        s, _ = fleet._step_core(packed["timgs"], packed["tids"], s)
     _assert_leaves_equal(want, s, f"fuzz seed {seed}")
     # the fuzz must reach the rare paths, not just fault at once
     assert (want["icount"] == FUZZ_STEPS).any()
@@ -263,21 +263,13 @@ def test_unported_paths_raise():
     cfg = HookConfig(emul_enabled=False)
     pps = [prepare(programs.getpid_loop(3), Mechanism.ASC, virtualize=True,
                    cfg=cfg)] * 2
-    for kw in ({"trace": True}, {"compact": True}, {"shard": True},
-               {"policy_overrides": {0: []}}):
+    for kw in ({"compact": True}, {"shard": True}):
         with pytest.raises(NotImplementedError):
             run_fleet_prepared(pps, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        pack_fleet(pps, trace=True, device="cpu")
+        pack_fleet(pps, table=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown fleet engine"):
         run_fleet_prepared(pps, engine="mosaic", device="cpu")
-    # guest-kernel emulation on (the JAX default) is a later slice
-    emul = [prepare(programs.getpid_loop(3), Mechanism.ASC, virtualize=True)]
-    with pytest.raises(NotImplementedError, match="emul_enabled=False"):
-        run_fleet_prepared(emul, device="cpu")
-    imgs, ids, s = pack_fleet(pps, device="cpu")
-    with pytest.raises(NotImplementedError):
-        fleet.run_fleet(imgs, s, ids, trace=object(), device="cpu")
     # both JAX engine names run the one dispatcher, with equal results
     a = run_fleet_prepared(pps, engine="xla", device="cpu")
     b = run_fleet_prepared(pps, engine="pallas", device="cpu")
