@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-The main path is a census run: 500 simulated AArch64 processes (5
-interception mechanisms x 5 workloads x 20 iteration counts, 25 decode
-images, ~8k instructions a lane) prepared with ASC-Hook at the default
-``HookConfig`` (guest-kernel emulation on) and run to halt as one fleet
-through ``repro_torch.core.run_fleet_prepared`` — every chunk of steps one
-launch of the CUDA megastep kernel.  The same kernel carries three
-variants of the TPU kernel, each driven by a path of its own: K1 (the
-census with emulation off), K3 (the default census, the main path) and
-K2 (the default census traced, with the policy gate).
+Two main paths, each driven through the entry points a user calls, with
+every kernel launch counted from 0 just before and read just after:
+
+* The census: 500 simulated AArch64 processes (5 interception mechanisms
+  x 5 workloads x 20 iteration counts, 25 decode images, ~8k instructions
+  a lane) prepared with ASC-Hook at the default ``HookConfig``
+  (guest-kernel emulation on) and run to halt as one fleet through
+  ``repro_torch.core.run_fleet_prepared`` — every chunk of steps one
+  launch of the CUDA megastep kernel.  The same kernel carries three
+  variants of the TPU kernel, each driven by a path of its own: K1 (the
+  census with emulation off), K3 (the default census) and K2 (the default
+  census traced, with the policy gate).
+* LM serving: ``repro_torch.serve.engine.ServeEngine`` over qwen3-1.7b at
+  full width (28 layers, d_model 2048, random weights from a seeded
+  ``torch.Generator``): 8 prompts of 64..512 tokens, 32 new tokens each —
+  every layer's prefill attention one launch of the CUDA flash-attention
+  kernel, every decode step's attention one launch a layer of the CUDA
+  flash-decode kernel.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
-1. ``build``: the kernel from ``src/`` (nvcc, sm_90a), ptxas's report;
-2. ``kernel_vs_plain``: kernel vs plain PyTorch version on the card, one
-   chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit for
-   bit — from the emulation-off census and seeded random states, from the
-   default census and seeded random states with random guest-kernel
+1. ``build``: the three kernel libraries from ``src/`` (one nvcc each,
+   sm_90a, all started together), megastep's ptxas report;
+   ``attn_build``: the attention libraries' ptxas summary;
+2. ``kernel_vs_plain``: megastep vs its plain PyTorch version on the card,
+   one chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit
+   for bit — from the emulation-off census and seeded random states, from
+   the default census and seeded random states with random guest-kernel
    tables, and from traced carries with random per-lane policies;
 3. ``main_path``: the default census to halt through the kernel, held leaf
    for leaf against the plain version to halt and against the JAX
@@ -32,7 +43,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    against the untraced states, the plain version and the JAX package's
    pinned trace digest; traced and untraced kernel times;
 7. ``table3``: the Table-3 per-call cycles (simulated, deterministic);
-8. the kernel table line, the card line, then the device line (last).
+8. ``flash_vs_plain``: flash attention vs its plain version, every case of
+   ``tests/test_kernels.py`` plus ragged lengths, dead window rows, head
+   dims 16-256 and the qwen3-1.7b prefill shape, f32 (2e-5) and bf16
+   (2e-2), every tile shape;
+9. ``decode_vs_plain``: flash-decode likewise, kv_len on and off the tile,
+   0 and past the cache, and the qwen3-1.7b decode shape;
+10. ``serve``: the serving path; its tokens; teacher-forced logits of the
+    kernel route against the kernels' plain versions on the card (relative
+    L2 within 2e-2, tokens equal outside near-ties) and every attention
+    call of that run against its plain version on the same inputs
+    (elementwise bf16 bound); prefill ms, decode ms per token, per-kernel
+    ms beside bound, plain and ``scaled_dot_product_attention`` times;
+11. the kernel table line, the card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
@@ -44,6 +67,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -60,10 +84,18 @@ from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.hookcfg import PolicyRule  # noqa: E402
 from repro_torch.core.machine import HALT_EXIT, MachineState  # noqa: E402
 from repro_torch.core.runtime import fleet_trace  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.emul import state as emul_state  # noqa: E402
+from repro_torch.kernels import nvcc  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as dkernel  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.megastep import kernel as mkernel  # noqa: E402
 from repro_torch.kernels.megastep import ops as mops  # noqa: E402
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
 from repro_torch.trace import recorder  # noqa: E402
 
@@ -145,6 +177,186 @@ HIST_BUMP_BYTES = 16       # one histogram word read and written
 # a traced lane's policy rows (int32 action + int64 arg a slot), read once,
 # and its 6 trace scalars, read and written once
 TRACE_LANE_BYTES = fleet.N_POLICY_SLOTS * 12 + 6 * 8 * 2
+
+# -- the LM serving path (qwen3-1.7b) and its attention kernels --------------
+BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
+# tests/test_kernels.py:26-27: the kernels' bounds, by input dtype
+TOLS = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window): tests/test_kernels.py:35-42,
+# then ragged lengths, a window whose rows past Skv - 1 + window have no
+# live key (Sq > Skv), the other head dims, and the qwen3-1.7b prefill
+FLASH_CASES = (
+    (2, 128, 128, 4, 4, 64, True, 0),      # MHA causal
+    (1, 256, 256, 8, 2, 64, True, 0),      # GQA 4:1
+    (2, 128, 128, 4, 1, 128, True, 0),     # MQA
+    (1, 256, 256, 4, 4, 64, False, 0),     # bidirectional
+    (1, 256, 256, 4, 2, 64, True, 64),     # local window
+    (1, 512, 512, 2, 2, 128, True, 128),   # longer + window
+    (2, 100, 100, 4, 2, 128, True, 0),     # ragged
+    (1, 77, 200, 4, 2, 64, False, 0),      # ragged, Sq != Skv
+    (1, 300, 300, 2, 1, 128, True, 96),    # ragged window
+    (1, 200, 130, 2, 2, 64, True, 16),     # dead rows past the keys
+    (1, 64, 64, 4, 2, 16, True, 0),        # head dim 16
+    (1, 128, 128, 2, 1, 256, True, 0),     # head dim 256
+)
+QWEN_PREFILL = (8, 512, 512, 16, 8, 128, True, 0)
+# (B, Skv, Hq, Hkv, hd, kv_len): tests/test_kernels.py:80-85, then kv_len
+# off the tile, kv_len 0 (every position masked) and past Skv, the other
+# head dims and group sizes, and the qwen3-1.7b decode shape
+DECODE_CASES = (
+    (2, 512, 8, 2, 64, 512),
+    (2, 512, 8, 2, 64, 300),
+    (1, 1024, 4, 1, 128, 1000),
+    (4, 256, 4, 4, 64, 256),
+    (3, 200, 8, 2, 128, 77),
+    (1, 64, 4, 2, 64, 0),
+    (1, 64, 4, 2, 64, 100),
+    (1, 300, 4, 4, 16, 300),
+    (2, 256, 10, 1, 256, 129),
+)
+QWEN_DECODE = (8, 576, 16, 8, 128, 529)
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BATCH, SERVE_NEW, SERVE_BUDGET = 8, 32, 64
+SERVE_PROMPT_LENS = (64, 512)  # shortest and longest prompt
+# the kernel instance each main path launches (bf16, head dim 128, the
+# default tile), by its mangled name
+MAIN_INSTANCE = {"flash_attention": "__nv_bfloat16Li128ELi64ELi32E",
+                 "decode_attention": "__nv_bfloat16Li128E"}
+
+
+def randn(shape, dtype, rng, device):
+    """Seeded N(0, 1) values (numpy), as ``dtype`` on ``device``."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x.to(device=device, dtype=dtype)
+
+
+def flash_inputs(case, dtype, seed, device):
+    B, Sq, Skv, Hq, Hkv, hd, _, _ = case
+    rng = np.random.default_rng(seed)
+    return (randn((B, Sq, Hq, hd), dtype, rng, device),
+            randn((B, Skv, Hkv, hd), dtype, rng, device),
+            randn((B, Skv, Hkv, hd), dtype, rng, device))
+
+
+def decode_inputs(case, dtype, seed, device):
+    B, Skv, Hq, Hkv, hd, _ = case
+    rng = np.random.default_rng(seed)
+    return (randn((B, 1, Hq, hd), dtype, rng, device),
+            randn((B, Skv, Hkv, hd), dtype, rng, device),
+            randn((B, Skv, Hkv, hd), dtype, rng, device))
+
+
+def over_bound(got, want, dtype) -> tuple:
+    """(max |got - want|, elements over atol + rtol * |want|)."""
+    atol, rtol = TOLS[dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return float(err.max()), int((err > atol + rtol * w.abs()).sum())
+
+
+def flash_work(case, dtype) -> tuple:
+    """(bytes, operations) the flash function needs: q, k, v read once and
+    the output written once; 4 * hd operations per live (query, key) pair
+    (2 for q.k, 2 for p.v)."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window = case
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Skv)[None, :]
+    live = np.ones((Sq, Skv), bool)
+    if causal:
+        live &= kp <= qp
+    if window:
+        live &= kp > qp - window
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * hd * (2 * B * Sq * Hq + 2 * B * Skv * Hkv)
+    return nbytes, 4 * hd * int(live.sum()) * B * Hq
+
+
+def decode_work(case, dtype) -> tuple:
+    """(bytes, operations) one decode launch needs: q read and the output
+    written once, the live cache positions (min(kv_len, Skv)) of K and V
+    read once; 4 * hd operations per (query row, live position)."""
+    B, Skv, Hq, Hkv, hd, kv_len = case
+    live = min(kv_len, Skv) if kv_len >= 1 else Skv
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * hd * (2 * B * Hq + 2 * B * Hkv * live)
+    return nbytes, 4 * hd * live * B * Hq
+
+
+def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the peak rate for the type."""
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean ms of ``fn()`` on the card: CUDA events around ``reps`` calls
+    after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def serve_requests(vocab: int, seed: int = 0) -> list:
+    """SERVE_BATCH seeded prompts, lengths in SERVE_PROMPT_LENS (both ends
+    taken), SERVE_NEW new tokens each."""
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_BATCH)
+    lens[0], lens[-1] = lo, hi
+    return [Request(rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for n in lens]
+
+
+# the model's attention: on the card, the route to the kernels
+ATTENTION = lm.attention
+
+
+def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0):
+    """The kernels' plain versions in the model's attention's place: the
+    reference the kernel route is held to on the card.  Prefill (no
+    ``kv_len``) takes flash attention's, decode flash-decode's."""
+    if kv_len is None:
+        return fops.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window)
+    return dops.decode_attention_plain(q, k, v, kv_len)
+
+
+def teacher_forced(cfg, run, params, toks, plen, tokens, *,
+                   attention=ATTENTION):
+    """Prefill logits, then one decode step per new token fed with
+    ``tokens`` (B, n) at positions plen + t, with ``attention`` in the
+    model's attention's place: [(B, V) logits] * (n + 1), with the prefill
+    and per-token decode ms (host clock, synchronised)."""
+    lm.attention = attention
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, run, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out = [logits]
+        t0 = time.perf_counter()
+        for t in range(tokens.shape[1]):
+            logits, cache = lm.decode_step(cfg, run, params, cache,
+                                           tokens[:, t:t + 1], plen + t)
+            out.append(logits)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
+    finally:
+        lm.attention = ATTENTION
+    return out, prefill_ms, decode_ms
 
 
 def census_grid():
@@ -510,6 +722,216 @@ def code_words_of(pps) -> int:
 
 # -- phases -------------------------------------------------------------------
 
+def flash_phase(dev, card) -> tuple:
+    """Flash attention vs its plain version on the card: every case of
+    FLASH_CASES and the qwen3-1.7b prefill shape, f32 and bf16, every tile
+    shape.  Returns (the phase's line, the largest error)."""
+    t0 = time.perf_counter()
+    err, n_checks = 0.0, 0
+    for i, case in enumerate(FLASH_CASES + (QWEN_PREFILL,)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(case, dtype, i, dev)
+            want = fops.flash_attention_plain(q, k, v, causal=case[6],
+                                              window=case[7])
+            for bq, bk in fkernel.TILES:
+                got = fops.flash_attention(q, k, v, causal=case[6],
+                                           window=case[7], bq=bq, bk=bk)
+                torch.cuda.synchronize()
+                e, n_over = over_bound(got, want, dtype)
+                if n_over or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"flash kernel != plain: {case} {dtype} tile "
+                        f"{(bq, bk)}: {n_over} elements over the bound, "
+                        f"max err {e}")
+                err = max(err, e)
+                n_checks += 1
+    return ({"phase": "flash_vs_plain", "card": card, "checks": n_checks,
+             "cases": len(FLASH_CASES) + 1, "tiles": fkernel.TILES,
+             "over_bound": 0, "max_abs_err": err,
+             "seconds": time.perf_counter() - t0}, err)
+
+
+def decode_phase(dev, card) -> tuple:
+    """Flash-decode vs its plain version on the card: every case of
+    DECODE_CASES and the qwen3-1.7b decode shape, f32 and bf16.  Returns
+    (the phase's line, the largest error)."""
+    t0 = time.perf_counter()
+    err, n_checks = 0.0, 0
+    for i, case in enumerate(DECODE_CASES + (QWEN_DECODE,)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = decode_inputs(case, dtype, 100 + i, dev)
+            want = dops.decode_attention_plain(q, k, v, case[5])
+            got = dops.decode_attention(q, k, v, case[5])
+            torch.cuda.synchronize()
+            e, n_over = over_bound(got, want, dtype)
+            if n_over or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"decode kernel != plain: {case} {dtype}: {n_over} "
+                    f"elements over the bound, max err {e}")
+            err = max(err, e)
+            n_checks += 1
+    return ({"phase": "decode_vs_plain", "card": card, "checks": n_checks,
+             "cases": len(DECODE_CASES) + 1, "over_bound": 0,
+             "max_abs_err": err, "seconds": time.perf_counter() - t0}, err)
+
+
+class AttentionCheck:
+    """Stands in for the model's attention during a run on the card: each
+    call runs the kernel route, then the kernels' plain versions on the
+    same inputs, and holds the kernel to the bf16 bound elementwise."""
+
+    def __init__(self):
+        self.calls, self.max_err, self.over = 0, 0.0, 0
+
+    def __call__(self, q, k, v, **kw):
+        got = ATTENTION(q, k, v, **kw)
+        want = plain_attention(q, k, v, **kw)
+        e, n = over_bound(got, want, q.dtype)
+        self.calls += 1
+        self.max_err, self.over = max(self.max_err, e), self.over + n
+        return got
+
+
+def serve_phase(dev, card) -> tuple:
+    """The LM serving path at qwen3-1.7b's full width: ServeEngine over 8
+    seeded prompts (64..512 tokens), 32 new tokens each, through the
+    attention kernels; launch counts read around that run; the run
+    teacher-forced through the kernels and through the plain attention on
+    the card, logits held to the bf16 bound; per-kernel times at the
+    run's shapes beside their bounds, plain versions and SDPA.  Returns
+    (the phase's line, {"flash": row, "decode": row} for the kernel
+    table)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    run = RunConfig(decode_budget=SERVE_BUDGET)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in lm.tree_leaves(params))
+    eng = ServeEngine(cfg, run, params, max_batch=SERVE_BATCH)
+    reqs = serve_requests(cfg.vocab)
+    eng.generate([Request(reqs[0].prompt[:16], max_new_tokens=2)])  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path, its launches counted from 0
+    fops.flash_attention.launches = 0
+    dops.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = {"flash": fops.flash_attention.launches,
+                "decode": dops.decode_attention.launches}
+    want = {"flash": cfg.n_layers, "decode": cfg.n_layers * SERVE_NEW}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    tokens = np.stack([o.tokens for o in outs])
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"tokens {tokens.shape} out of range")
+
+    # teacher-forced: kernels, then the kernels' plain versions, same tokens
+    toks, plen = eng._pad_batch(reqs)
+    fed = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    lk, prefill_ms, decode_ms = teacher_forced(cfg, run, params, toks, plen,
+                                               fed)
+    lp, prefill_ms_plain, decode_ms_plain = teacher_forced(
+        cfg, run, params, toks, plen, fed, attention=plain_attention)
+    picks_k = torch.stack([x[:, :cfg.vocab].argmax(-1) for x in lk[:-1]], 1)
+    if not torch.equal(picks_k.cpu(), torch.from_numpy(tokens).long()):
+        raise AssertionError("teacher-forced kernel run != the engine's "
+                             "tokens")
+    # logits: normwise bf16 bound per step; tokens equal wherever the plain
+    # run's top-2 margin exceeds twice that step's largest logit difference
+    agree, n_over, worst, rel, flips = 0, 0, 0.0, 0.0, 0
+    for a, b in zip(lk[:-1], lp[:-1]):
+        a, b = a[:, :cfg.vocab].float(), b[:, :cfg.vocab].float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits")
+        e, n = over_bound(a, b, torch.bfloat16)
+        worst, n_over = max(worst, e), n_over + n
+        rel = max(rel, float((a - b).norm() / b.norm()))
+        top2 = b.topk(2, dim=-1).values
+        same = a.argmax(-1) == b.argmax(-1)
+        agree += int(same.sum())
+        flips += int((~same & (top2[:, 0] - top2[:, 1] > 2 * e)).sum())
+    if rel > TOLS[torch.bfloat16][1] or flips:
+        raise AssertionError(f"kernel-route logits != plain-route logits: "
+                             f"relative L2 {rel}, {flips} tokens differ "
+                             f"outside a near-tie")
+    # every attention call of the kernel run against the plain versions on
+    # the same inputs, elementwise
+    check = AttentionCheck()
+    teacher_forced(cfg, run, params, toks, plen, fed, attention=check)
+    if check.over or check.calls != cfg.n_layers * (SERVE_NEW + 1):
+        raise AssertionError(f"attention calls {check.calls}: "
+                             f"{check.over} elements over the bf16 bound")
+
+    # per-kernel times at the run's shapes (random inputs of those shapes)
+    rows = {}
+    B, Hq, Hkv, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    case = (B, plen, plen, Hq, Hkv, hd, True, 0)
+    q, k, v = flash_inputs(case, torch.bfloat16, 7, dev)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes, ops = flash_work(case, torch.bfloat16)
+    bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
+    rows["flash"] = {
+        "launches": launches["flash"],
+        "ms": cuda_ms(lambda: fops.flash_attention(q, k, v, causal=True)),
+        "plain_ms": cuda_ms(lambda: fops.flash_attention_plain(
+            q, k, v, causal=True), reps=5),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True))}
+    Skv = plen + SERVE_BUDGET
+    qd, kc, vc = decode_inputs((B, Skv, Hq, Hkv, hd, 0), torch.bfloat16, 8,
+                               dev)
+    qds = qd.transpose(1, 2).contiguous()
+    ms = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    bys = set()
+    for t in range(SERVE_NEW):  # the run's kv_len, one per decode step
+        kv_len = plen + t + 1
+        kl, vl = (x[:, :kv_len].transpose(1, 2).contiguous()
+                  for x in (kc, vc))
+        ms["ms"] += cuda_ms(lambda: dops.decode_attention(qd, kc, vc, kv_len),
+                            reps=10)
+        ms["plain_ms"] += cuda_ms(lambda: dops.decode_attention_plain(
+            qd, kc, vc, kv_len), reps=3)
+        ms["library_ms"] += cuda_ms(lambda: sdpa(qds, kl, vl,
+                                                 enable_gqa=True), reps=10)
+        nbytes, ops = decode_work((B, Skv, Hq, Hkv, hd, kv_len),
+                                  torch.bfloat16)
+        bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
+        ms["bound_ms"] += bnd
+        bys.add(by)
+    rows["decode"] = {"launches": launches["decode"],
+                      **{key: val / SERVE_NEW for key, val in ms.items()},
+                      "bound_by": "/".join(sorted(bys))}
+
+    line = {"phase": "serve", "card": card, "arch": SERVE_ARCH,
+            "n_params": n_params, "layers": cfg.n_layers,
+            "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt) for r in reqs],
+            "padded_len": plen, "new_tokens": SERVE_NEW,
+            "decode_budget": SERVE_BUDGET, "launches": launches,
+            "init_s": init_s, "generate_s": generate_s,
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "plain_prefill_ms": prefill_ms_plain,
+            "plain_decode_ms_per_token": decode_ms_plain,
+            "token_agreement_plain": agree / (SERVE_BATCH * SERVE_NEW),
+            "logits_max_rel_l2": rel, "logits_max_abs_err": worst,
+            "logits_elements_over_elementwise_bound": n_over,
+            "attention_calls_checked": check.calls,
+            "attention_max_abs_err": check.max_err,
+            "attention_over_bound": check.over,
+            "kernel_ms": {k_: r["ms"] for k_, r in rows.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_phase}
+    return line, rows
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and blocks 32 and 96: the kernel
     equals the plain version on every leaf.  Returns the largest error."""
@@ -544,16 +966,41 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
 
-    # 1. build
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. build: the three kernel libraries from src/, one nvcc each, all
+    #    started together
     t0 = time.perf_counter()
-    lib, report = mkernel.build()
+    mods = {"megastep": mkernel, "flash_attention": fkernel,
+            "decode_attention": dkernel}
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = {name: ex.submit(mod.build) for name, mod in mods.items()}
+        built = {name: f.result() for name, f in futs.items()}
     build_s = time.perf_counter() - t0
-    mkernel.load_library()
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln or "stack frame" in ln]
+    for mod in mods.values():
+        mod.load_library()
+    lib, report = built["megastep"]
     emit({"phase": "build", "card": card, "seconds": build_s,
-          "library": lib.name, "ptxas": ptxas, "kind": kind,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "library": lib.name, "ptxas": nvcc.ptxas_lines(report),
+          "kind": kind, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    attn_ptxas = {}
+    for name in ("flash_attention", "decode_attention"):
+        table = nvcc.ptxas_table(built[name][1])
+        main = [v for k, v in table.items() if MAIN_INSTANCE[name] in k]
+        attn_ptxas[name] = {
+            "library": built[name][0].name, "instances": len(table),
+            "max_registers": max((v.get("registers", 0)
+                                  for v in table.values()), default=None),
+            "max_stack": max((v.get("stack", 0) for v in table.values()),
+                             default=None),
+            "spill_bytes": sum(v.get("spill_stores", 0)
+                               + v.get("spill_loads", 0)
+                               for v in table.values()),
+            "main_path_instance": main[0] if main else None}
+    emit({"phase": "attn_build", "card": card, "seconds": build_s,
+          **attn_ptxas})
 
     # 2. kernel vs plain, one chunk, on the card
     t0 = time.perf_counter()
@@ -802,7 +1249,17 @@ def main() -> int:
     emit({"phase": "table3", "card": card, "cycles_per_call": cyc,
           "script_s": time.perf_counter() - t_script})
 
-    # 8. the kernel table, the card, and the device line (last)
+    # 8-9. the attention kernels vs their plain versions, on the card
+    line, err_by["flash"] = flash_phase(dev, card)
+    emit(line)
+    line, err_by["decode"] = decode_phase(dev, card)
+    emit(line)
+
+    # 10. the LM serving path: full-width qwen3-1.7b, random weights
+    serve, attn_rows = serve_phase(dev, card)
+    emit(serve)
+
+    # 11. the kernel table, the card, and the device line (last)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -819,7 +1276,17 @@ def main() -> int:
         {"name": "megastep_chunk K2 (traced, policy gate)", **common,
          "launches": launches_k2, "max_abs_err": err_by["K2"],
          "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
-         "bound_by": by_k2}]})
+         "bound_by": by_k2},
+        {"name": "flash_attention (qwen3-1.7b prefill)", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         "max_abs_err": err_by["flash"], **attn_rows["flash"]},
+        {"name": "decode_attention (qwen3-1.7b decode)", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                   "decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:58",
+         "max_abs_err": err_by["decode"], **attn_rows["decode"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

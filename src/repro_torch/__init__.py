@@ -5,5 +5,9 @@ layout and names and never imports it (nor JAX).  Ported so far: image
 preparation (scan, hybrid rewrite, trampolines), the whole fleet executor
 — guest-kernel emulation (:mod:`repro_torch.emul`), syscall tracing and
 seccomp-style policy (:mod:`repro_torch.trace`) — its run-to-halt and
-bounded-span drivers, and the CUDA megastep kernel they dispatch to.
+bounded-span drivers, and the CUDA megastep kernel they dispatch to; and
+the LM serving path for the ``attn``-only decoders (:mod:`repro_torch.
+configs`, :mod:`repro_torch.models`, :mod:`repro_torch.serve`), whose
+attention runs on the card through the CUDA flash-attention and
+flash-decode kernels.
 """

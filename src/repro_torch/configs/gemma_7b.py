@@ -1,0 +1,19 @@
+"""gemma-7b [dense] — 28L d_model=3072 16H (GQA kv=16) d_ff=24576
+vocab=256000; GeGLU, head_dim=256 (explicit, H*hd=4096 != d_model).
+[arXiv:2403.08295; hf]
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-7b",
+    n_layers=28, d_model=3072, n_heads=16, n_kv_heads=16, head_dim=256,
+    d_ff=24576, vocab=256000, act="geglu", tie_embeddings=True,
+    emb_scale=True,
+)
+
+SMOKE = ModelConfig(
+    name="gemma-7b-smoke",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=32,
+    d_ff=128, vocab=256, act="geglu", tie_embeddings=True, emb_scale=True,
+    vocab_pad_multiple=16,
+)

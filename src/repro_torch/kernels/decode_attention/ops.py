@@ -1,0 +1,76 @@
+"""The flash-decode wrapper, in the model's (B, S, H, hd) layout.
+
+:func:`decode_attention` is the one entry to the kernel: for CPU tensors it
+runs the plain version (:func:`decode_attention_plain`: the JAX wrapper's
+reshapes, then :mod:`.ref`); for CUDA tensors it launches the CUDA kernel
+(:mod:`.kernel`) on the cache's (B, S, H, hd) strides directly, or raises
+— there is no fallback.  ``kv_len`` is a host integer, so no call syncs.
+``decode_attention.launches`` counts kernel launches (it stays 0 on the
+CPU).
+"""
+from __future__ import annotations
+
+import operator
+
+import torch
+
+from ..flash_attention.ops import check_qkv
+from .kernel import HEAD_DIMS, MAX_GROUP, decode_attention_cuda
+from .ref import decode_attention_ref
+
+
+def decode_attention_plain(q, k, v, kv_len: int):
+    """The plain version in the wrapper's layout: q (B, 1, Hq, hd);
+    k, v (B, Skv, Hkv, hd) -> (B, 1, Hq, hd)."""
+    B, _, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    q3 = q.reshape(B, Hkv, G, hd).reshape(B * Hkv, G, hd)
+    k3 = k.transpose(1, 2).reshape(B * Hkv, Skv, hd)
+    v3 = v.transpose(1, 2).reshape(B * Hkv, Skv, hd)
+    o3 = decode_attention_ref(q3, k3, v3, kv_len)
+    return o3.reshape(B, Hkv, G, hd).reshape(B, 1, Hq, hd)
+
+
+def decode_attention(q, k, v, kv_len):
+    """q: (B, 1, Hq, hd); k, v: (B, Skv, Hkv, hd); kv_len: an int (cache
+    positions >= kv_len are masked) -> (B, 1, Hq, hd).
+
+    Query head hq = hkv * G + g, G = Hq // Hkv."""
+    check_qkv(q, k, v)
+    kv_len = operator.index(kv_len)  # a host int: never a device sync
+    if q.shape[1] != 1:
+        raise ValueError(f"decode takes one query position, got {q.shape[1]}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, _, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernel has {HEAD_DIMS}")
+    if G > MAX_GROUP:
+        raise ValueError(f"{G} query heads per kv head: the kernel takes "
+                         f"at most {MAX_GROUP}")
+    vec = 16 // q.element_size()  # elements in the kernel's 16-byte loads
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError(f"{name}: rows must be 16-byte aligned")
+    q3 = q.reshape(B * Hkv, G, hd)
+    out = torch.empty((B * Hkv, G, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out.reshape(B, 1, Hq, hd)
+    if Skv < 1:
+        raise ValueError("Skv must be >= 1")
+    strides = (q3.stride(0), q3.stride(1),
+               k.stride(0), k.stride(2), k.stride(1),
+               v.stride(0), v.stride(2), v.stride(1),
+               out.stride(0), out.stride(1))
+    decode_attention_cuda(q3, k, v, out, kv_len, Hkv=Hkv, Skv=Skv,
+                          strides=strides)
+    decode_attention.launches += 1
+    return out.reshape(B, 1, Hq, hd)
+
+
+decode_attention.launches = 0

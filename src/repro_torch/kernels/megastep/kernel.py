@@ -1,10 +1,9 @@
 """Build and launch the CUDA megastep kernel (``csrc/megastep.cu``).
 
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  The
-library lands in ``build/`` beside this file (git-ignored), named by a
-hash of the source, the generated constants header and the flags, so an
-edited source rebuilds and an unchanged one is reused.
+shared library with a plain C interface, loaded with ``ctypes``
+(:mod:`repro_torch.kernels.nvcc`: ``build/`` beside this file, named by a
+hash of the source, the generated constants header and the flags).
 
 The constants the kernel needs (layout, op-spec classes, halt codes, cost
 model, the ``MachineState`` leaf order) are generated into a header from
@@ -17,10 +16,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
@@ -35,12 +30,11 @@ from ...core.isa import Op
 from ...core.machine import MachineState
 from ...emul import state as emul_state
 from ...emul.engine import W_KIO
+from .. import nvcc
 
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "megastep.cu"
 BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_BLOCK = 32  # threads (= lanes) per block: 500 lanes -> 16 blocks
 
 
@@ -96,39 +90,12 @@ def consts_header() -> str:
     return "\n".join(lines) + "\n"
 
 
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the megastep kernel is built with "
-                       "the CUDA toolkit on the machine with the card")
-
-
 def build() -> tuple[Path, str]:
     """Compile the kernel library if it is not built yet.  Returns the
     library path and the compiler's report (``-Xptxas -v``: registers,
     shared memory, spills; empty when the library was already there)."""
-    header = consts_header()
-    src = SOURCE.read_text()
-    tag = hashlib.sha1("\0".join((src, header) + NVCC_FLAGS).encode()
-                       ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmegastep_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    inc = BUILD_DIR / f"include_{tag}"
-    inc.mkdir(parents=True, exist_ok=True)
-    (inc / "megastep_consts.h").write_text(header)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", str(inc), "-o", str(tmp),
-           str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return nvcc.build("megastep", SOURCE, BUILD_DIR,
+                      {"megastep_consts.h": consts_header()})
 
 
 class _Args(ctypes.Structure):

@@ -1,0 +1,284 @@
+"""The decoder-only LM of the PyTorch port: ``attn`` blocks, KV cache.
+
+The JAX package's ``models/lm.py`` for the configurations whose every
+layer is ``attn`` and that have no experts, no encoder and no modality
+frontend (qwen3-1.7b, qwen3-4b, gemma-7b, qwen1.5-110b);
+:func:`check_ported` raises ``NotImplementedError`` for the rest, naming
+what is missing.  The parameter tree is the JAX package's, leaf for leaf:
+``{"embed": {"tok"}, "final_norm", "tiles": {"b<i>": <block stacked over
+n_tiles>}[, "lm_head"]}``, so weights carry across with
+:mod:`repro_torch.models.interop`.  The ``lax.scan`` over tiles is a Python
+loop over the stacked leading axis.
+
+Modes:
+  * ``train``   — full-sequence forward, no cache.
+  * ``prefill`` — full-sequence forward, returns the decode cache (K/V of
+    the prompt, padded with ``run.decode_budget`` zero slots).
+  * ``decode``  — one token against the cache.  The new K/V row is written
+    into the cache in place (the JAX function returns a new cache; here
+    the returned cache is the one passed in, updated), which saves a copy
+    of the whole cache per token.
+
+Attention on CUDA tensors runs through the hand-written kernels; CPU
+tensors take the JAX model's plain attention (:func:`layers.attention`).
+"""
+from __future__ import annotations
+
+import math
+import operator
+from typing import Any, Dict
+
+import torch
+
+from ..configs.base import ModelConfig, RunConfig
+from ..core.machine import resolve_device
+from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, apply_mlp, attention,
+                     attn_out, attn_qkv, dense_init, dot, init_attn,
+                     init_mlp, rms_norm)
+
+Params = Dict[str, Any]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first block kind or
+    feature of ``cfg`` that the port does not have yet."""
+    for kind in cfg.block_pattern:
+        if kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: moe is not ported yet")
+    if cfg.kind != "decoder":
+        raise NotImplementedError(
+            f"{cfg.name}: model kind {cfg.kind!r} (encdec) is not ported yet")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet")
+    if cfg.n_layers % len(cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: tail blocks (n_layers % len(block_pattern)) are "
+            "not ported yet")
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, *,
+                lead=()) -> Params:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    lead = tuple(lead)
+
+    def ones():
+        return torch.ones(lead + (cfg.d_model,), dtype=PARAM_DTYPE,
+                          device=gen.device)
+
+    p: Params = {"ln1": ones(), "attn": init_attn(cfg, gen, lead=lead)}
+    if cfg.d_ff > 0:
+        p["ln2"] = ones()
+        p["mlp"] = init_mlp(cfg, gen, lead=lead)
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random parameters drawn from ``gen``, on its device (a CUDA
+    generator puts them on the card).  Same tree and scales as the JAX
+    package's ``init_params``; the values differ (another generator)."""
+    check_ported(cfg)
+    n_tiles = cfg.n_layers // len(cfg.block_pattern)
+    params: Params = {
+        # 1/sqrt(d) so tied-head logits are O(1) at init
+        "embed": {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                    scale=1.0 / math.sqrt(cfg.d_model))},
+        "final_norm": torch.ones((cfg.d_model,), dtype=PARAM_DTYPE,
+                                 device=gen.device),
+    }
+    params["tiles"] = {f"b{bi}": _init_block(cfg, kind, gen,
+                                             lead=(n_tiles,))
+                       for bi, kind in enumerate(cfg.block_pattern)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                      *, lead, device) -> Params:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    shape = tuple(lead) + (batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                      device=None) -> Params:
+    """An all-zero decode cache of ``seq_len`` positions; ``device=None``
+    is the card."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    n_tiles = cfg.n_layers // len(cfg.block_pattern)
+    return {"tiles": {
+        f"b{bi}": _init_block_cache(cfg, kind, batch, seq_len,
+                                    lead=(n_tiles,), device=dev)
+        for bi, kind in enumerate(cfg.block_pattern)}}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _self_attention(cfg: ModelConfig, run: RunConfig, p: Params, h, *,
+                    mode: str, cache, pos):
+    B, S, _ = h.shape
+    if mode == "decode":
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=h.device)
+        q, k, v = attn_qkv(cfg, p, h, positions)
+        ck, cv = cache["k"], cache["v"]
+        # dynamic_update_slice clamps the start into the cache
+        slot = min(max(pos, 0), ck.shape[1] - 1)
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        o = attention(q, ck, cv, causal=False, kv_len=pos + 1)
+        return attn_out(cfg, p, o), dict(cache, k=ck, v=cv)
+
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    q, k, v = attn_qkv(cfg, p, h, positions[None].expand(B, S))
+    o = attention(q, k, v, causal=True, chunk=run.attn_chunk)
+    out = attn_out(cfg, p, o)
+
+    new_cache = None
+    if mode == "prefill":
+        pad = run.decode_budget
+        if pad:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        new_cache = {"k": k, "v": v}
+    return out, new_cache
+
+
+def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
+                mode: str, cache=None, pos=None):
+    """Returns (x, new_cache).  (The JAX function also returns the MoE
+    auxiliary loss, zero without experts.)"""
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, new_cache = _self_attention(cfg, run, p["attn"], h, mode=mode,
+                                   cache=cache, pos=pos)
+    x = x + y
+    if "ln2" in p:
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + apply_mlp(cfg, p["mlp"], h2)
+    return x, (new_cache or {})
+
+
+# ---------------------------------------------------------------------------
+# stacks
+# ---------------------------------------------------------------------------
+
+def _run_stack(cfg: ModelConfig, run: RunConfig, params: Params, x, *,
+               mode: str, cache=None, pos=None):
+    """Loop the pattern-tiled stack; returns (x, new_cache)."""
+    pat = cfg.block_pattern
+    tiles = params["tiles"]
+    tile_caches = cache["tiles"] if cache else None
+    n_tiles = tree_leaves(tiles)[0].shape[0]
+    per_tile = []
+    for i in range(n_tiles):
+        new_tc = {}
+        for bi, kind in enumerate(pat):
+            tp = tree_map(lambda a: a[i], tiles[f"b{bi}"])
+            bc = (tree_map(lambda a: a[i], tile_caches[f"b{bi}"])
+                  if tile_caches else None)
+            x, new_tc[f"b{bi}"] = apply_block(
+                cfg, run, kind, tp, x, mode=mode, cache=bc, pos=pos)
+        per_tile.append(new_tc)
+    if mode == "decode":
+        return x, {"tiles": tile_caches}  # rows written in place
+    if mode != "prefill":
+        return x, {}
+    return x, {"tiles": {
+        f"b{bi}": {leaf: torch.stack([t[f"b{bi}"][leaf] for t in per_tile])
+                   for leaf in per_tile[0][f"b{bi}"]}
+        for bi in range(len(pat))}}
+
+
+# ---------------------------------------------------------------------------
+# model entry points
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, params: Params, tokens):
+    x = params["embed"]["tok"][tokens].to(COMPUTE_DTYPE)
+    if cfg.emb_scale:
+        x = x * float(math.sqrt(cfg.d_model))  # stays bf16
+    return x
+
+
+def _backbone(cfg: ModelConfig, run: RunConfig, params: Params,
+              batch: Dict[str, Any], mode: str):
+    """Embed + stack + final norm. Returns (x_normed, cache)."""
+    check_ported(cfg)
+    x = _embed(cfg, params, batch["tokens"])
+    x, cache = _run_stack(cfg, run, params, x, mode=mode)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, cache
+
+
+def _head_weight(cfg: ModelConfig, params: Params):
+    if cfg.tie_embeddings:
+        return params["embed"]["tok"].to(COMPUTE_DTYPE).T
+    return params["lm_head"].to(COMPUTE_DTYPE)
+
+
+def forward(cfg: ModelConfig, run: RunConfig, params: Params,
+            batch: Dict[str, Any], mode: str = "train"):
+    """Full-sequence forward. Returns (logits, aux, cache|None); aux, the
+    MoE auxiliary loss, is zero without experts."""
+    x, cache = _backbone(cfg, run, params, batch, mode)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = dot(x, _head_weight(cfg, params))
+    return logits, aux, (cache if mode == "prefill" else None)
+
+
+def prefill(cfg: ModelConfig, run: RunConfig, params: Params,
+            batch: Dict[str, Any]):
+    """Returns (the last position's logits (B, V), the decode cache).
+
+    The head is applied to the last position only: the same logits as
+    ``forward(...)[0][:, -1]`` without the (B, S, V) tensor."""
+    x, cache = _backbone(cfg, run, params, batch, "prefill")
+    return dot(x[:, -1], _head_weight(cfg, params)), cache
+
+
+def decode_step(cfg: ModelConfig, run: RunConfig, params: Params,
+                cache: Params, tokens, pos):
+    """One decode step. tokens: (B, 1); pos: the absolute position, a host
+    int.  Returns (logits (B, V), the cache with this position's K/V
+    written in place)."""
+    check_ported(cfg)
+    pos = operator.index(pos)
+    x = _embed(cfg, params, tokens)
+    x, new_cache = _run_stack(cfg, run, params, x, mode="decode",
+                              cache=cache, pos=pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = dot(x, _head_weight(cfg, params))
+    return logits[:, 0], new_cache

@@ -1,12 +1,13 @@
-"""The CUDA megastep kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+megastep, flash attention and flash-decode, and the LM serving path.
 
 These tests need a CUDA card and skip without one (a skip is not a pass).
 They import no JAX, so they run on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-``chip_smoke.py`` holds the kernel to the same standard at the full
-census size.
+``chip_smoke.py`` holds the kernels to the same standard at the full
+census size and at qwen3-1.7b's full width.
 """
 import importlib.util
 from pathlib import Path
@@ -19,8 +20,14 @@ from repro_torch.core import (HookConfig, interop, pack_fleet,
                               run_fleet_prepared)
 from repro_torch.core.machine import MachineState
 from repro_torch.core.runtime import fleet_trace
+from repro_torch.configs import RunConfig, get_smoke
+from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.megastep import ops as mops
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref
+from repro_torch.models import lm
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.trace import policy as tpolicy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -153,3 +160,107 @@ def test_traced_run_on_card_matches_cpu(census_every_tenth, card):
     for w, g in zip(want, got):
         _assert_equal(w, type(g)(*(x.cpu() for x in g)), "traced run")
     assert int(want[1].deny_count[1]) > 0
+
+
+# -- attention kernels (tolerances: tests/test_kernels.py:26-27, by dtype) ----
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture(autouse=True)
+def _full_f32_products():
+    """f32 matmuls in f32 (the plain versions), not TF32."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SMOKE.FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain(card, case, dtype):
+    """Every tile shape; ragged lengths, windows with dead rows, GQA/MQA,
+    head dims 16-256; one counted launch per call."""
+    q, k, v = SMOKE.flash_inputs(case, dtype, 0, card)
+    want = fops.flash_attention_plain(q, k, v, causal=case[6],
+                                      window=case[7])
+    for bq, bk in fkernel.TILES:
+        n0 = fops.flash_attention.launches
+        got = fops.flash_attention(q, k, v, causal=case[6], window=case[7],
+                                   bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        assert fops.flash_attention.launches == n0 + 1
+        err, n_over = SMOKE.over_bound(got, want, dtype)
+        assert n_over == 0, f"tile {(bq, bk)}: max err {err}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SMOKE.DECODE_CASES, ids=str)
+def test_decode_kernel_matches_plain(card, case, dtype):
+    """kv_len on and off the tile, 0 and past Skv; G up to 10."""
+    q, k, v = SMOKE.decode_inputs(case, dtype, 1, card)
+    want = dops.decode_attention_plain(q, k, v, case[5])
+    n0 = dops.decode_attention.launches
+    got = dops.decode_attention(q, k, v, case[5])
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == n0 + 1
+    err, n_over = SMOKE.over_bound(got, want, dtype)
+    assert n_over == 0, f"max err {err}"
+
+
+def test_decode_kernel_reads_a_strided_cache(card):
+    """The model's cache is one layer of a stacked tensor: the kernel reads
+    it in place; a view whose rows are not 16-byte aligned raises."""
+    case = (2, 96, 8, 2, 64, 70)
+    q, k, v = SMOKE.decode_inputs(case, torch.bfloat16, 2, card)
+    kk = torch.stack([v, k])[1]
+    vv = torch.stack([k, v])[1]
+    got = dops.decode_attention(q, kk, vv, case[5])
+    want = dops.decode_attention_plain(q, k, v, case[5])
+    assert SMOKE.over_bound(got, want, torch.bfloat16)[1] == 0
+    buf = torch.empty(k.numel() + 8, dtype=k.dtype, device=card)
+    km = buf[1:1 + k.numel()].view(k.shape)
+    km.copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        dops.decode_attention(q, km, v, case[5])
+
+
+def test_attention_kernels_raise_on_what_they_do_not_take(card):
+    q = torch.zeros((1, 8, 2, 32), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        dops.decode_attention(q[:, :1], q, q, 4)
+    q = torch.zeros((1, 8, 2, 64), device=card)
+    with pytest.raises(ValueError, match="tile"):
+        fops.flash_attention(q, q, q, bq=128, bk=128)
+
+
+def test_serve_engine_runs_the_kernels(card):
+    """qwen3-1.7b SMOKE on the card: every prefill layer one flash launch,
+    every decode step one flash-decode launch a layer; the engine's tokens
+    are the argmax of its teacher-forced kernel-route logits, and every
+    attention call of that run is within the bf16 bound of the kernels'
+    plain versions on the same inputs."""
+    cfg = get_smoke("qwen3-1.7b")
+    run = RunConfig(attn_chunk=8, remat_policy="none", decode_budget=8)
+    params = lm.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(cfg, run, params, max_batch=2)
+    prompts = [np.arange(8, dtype=np.int32), np.arange(5, dtype=np.int32) + 3]
+    fops.flash_attention.launches = dops.decode_attention.launches = 0
+    outs = eng.generate([Request(p, max_new_tokens=4) for p in prompts])
+    assert fops.flash_attention.launches == cfg.n_layers
+    assert dops.decode_attention.launches == cfg.n_layers * 4
+    tokens = np.stack([o.tokens for o in outs])
+    toks, plen = eng._pad_batch([Request(p) for p in prompts])
+    fed = torch.from_numpy(tokens.astype(np.int64)).to(card)
+    check = SMOKE.AttentionCheck()
+    logits, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                        attention=check)
+    assert check.calls == cfg.n_layers * 5 and check.over == 0
+    picks = np.stack([x[:, :cfg.vocab].argmax(-1).cpu().numpy()
+                      for x in logits[:-1]], 1)
+    np.testing.assert_array_equal(picks, tokens)
