@@ -21,12 +21,20 @@ every kernel launch counted from 0 just before and read just after:
   every layer's prefill attention one launch of the CUDA flash-attention
   kernel, every decode step's attention one launch a layer of the CUDA
   flash-decode kernel.
+* Hybrid serving: the same engine over recurrentgemma-2b at full width
+  and depth (26 layers on the pattern RG-LRU, RG-LRU, local attention:
+  18 RG-LRU and 8 local-attention layers, d_model 2560, 10 query heads to
+  1 KV head of 256, window 2048), the same requests — every RG-LRU
+  layer's scan one launch of the CUDA rglru_scan kernel (prefill and each
+  decode step), every local-attention prefill one flash-attention launch
+  with the window; the ring decode is the model's plain masked attention.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
-1. ``build``: the three kernel libraries from ``src/`` (one nvcc each,
-   sm_90a, all started together), megastep's ptxas report;
-   ``attn_build``: the attention libraries' ptxas summary;
+1. ``build``: the four kernel libraries from ``src/`` (one nvcc each,
+   sm_90a, all started together), megastep's and rglru_scan's ptxas
+   reports; ``attn_build``: the attention libraries' ptxas summary (the
+   instances both serving paths launch);
 2. ``kernel_vs_plain``: megastep vs its plain PyTorch version on the card,
    one chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit
    for bit — from the emulation-off census and seeded random states, from
@@ -45,8 +53,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 7. ``table3``: the Table-3 per-call cycles (simulated, deterministic);
 8. ``flash_vs_plain``: flash attention vs its plain version, every case of
    ``tests/test_kernels.py`` plus ragged lengths, dead window rows, head
-   dims 16-256 and the qwen3-1.7b prefill shape, f32 (2e-5) and bf16
-   (2e-2), every tile shape;
+   dims 16-256, a 2048 window that binds (S 4096, 10:1 heads of 256) and
+   both serving paths' prefill shapes, f32 (2e-5) and bf16 (2e-2), every
+   tile shape;
 9. ``decode_vs_plain``: flash-decode likewise, kv_len on and off the tile,
    0 and past the cache, and the qwen3-1.7b decode shape;
 10. ``serve``: the serving path; its tokens; teacher-forced logits of the
@@ -55,7 +64,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     call of that run against its plain version on the same inputs
     (elementwise bf16 bound); prefill ms, decode ms per token, per-kernel
     ms beside bound, plain and ``scaled_dot_product_attention`` times;
-11. the kernel table line, the card line, then the device line (last).
+11. ``rglru_vs_plain``: the RG-LRU scan kernel vs its plain versions,
+    ``tests/test_kernels.py``'s cases, odd lengths and widths, h0 zero and
+    not, recurrentgemma-2b's prefill and decode shapes: bit for bit
+    against the sequential version, within atol 1e-5 / rtol 1e-4 of the
+    associative scan;
+12. ``serve_recurrentgemma``: the hybrid serving path, checked as
+    ``serve`` is, every scan call also against both plain versions; the
+    kernel route bit for bit equal to the route with the scan's
+    sequential plain version; the relative L2 against the plain route held
+    to the larger of 2e-2 and the distance between the two plain routes
+    (the kernels' plain versions; the JAX model's own functions), which
+    26 random-weight layers put above 2e-2;
+13. the kernel table line, the card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
@@ -94,7 +115,12 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.megastep import kernel as mkernel  # noqa: E402
 from repro_torch.kernels.megastep import ops as mops  # noqa: E402
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as rkernel  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    rglru_scan_ref, rglru_scan_seq)
+from repro_torch.models import layers, lm  # noqa: E402
+from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
 from repro_torch.trace import recorder  # noqa: E402
@@ -199,8 +225,10 @@ FLASH_CASES = (
     (1, 200, 130, 2, 2, 64, True, 16),     # dead rows past the keys
     (1, 64, 64, 4, 2, 16, True, 0),        # head dim 16
     (1, 128, 128, 2, 1, 256, True, 0),     # head dim 256
+    (1, 4096, 4096, 10, 1, 256, True, 2048),  # recurrentgemma's window binds
 )
 QWEN_PREFILL = (8, 512, 512, 16, 8, 128, True, 0)
+RG_PREFILL = (8, 512, 512, 10, 1, 256, True, 2048)
 # (B, Skv, Hq, Hkv, hd, kv_len): tests/test_kernels.py:80-85, then kv_len
 # off the tile, kv_len 0 (every position masked) and past Skv, the other
 # head dims and group sizes, and the qwen3-1.7b decode shape
@@ -219,10 +247,19 @@ QWEN_DECODE = (8, 576, 16, 8, 128, 529)
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_BATCH, SERVE_NEW, SERVE_BUDGET = 8, 32, 64
 SERVE_PROMPT_LENS = (64, 512)  # shortest and longest prompt
-# the kernel instance each main path launches (bf16, head dim 128, the
-# default tile), by its mangled name
+RG_ARCH = "recurrentgemma-2b"
+# the kernel instance each main path launches (bf16, the default tile; head
+# dim 128 for qwen3-1.7b, 256 for recurrentgemma-2b), by its mangled name
 MAIN_INSTANCE = {"flash_attention": "__nv_bfloat16Li128ELi64ELi32E",
                  "decode_attention": "__nv_bfloat16Li128E"}
+RG_INSTANCE = "__nv_bfloat16Li256ELi64ELi32E"
+# the RG-LRU scan: tests/test_kernels.py:131's bound, its cases
+# (tests/test_kernels.py:118-122), odd lengths and widths, and the
+# recurrentgemma-2b serving shapes (B, S, d_rnn): prefill and decode
+SCAN_TOL = (1e-5, 1e-4)
+RGLRU_CASES = ((2, 256, 256), (1, 512, 512), (3, 128, 1024),
+               (2, 1, 300), (2, 5, 130), (2, 100, 333), (1, 777, 64))
+RG_SCAN_PREFILL, RG_SCAN_DECODE = (8, 512, 2560), (8, 1, 2560)
 
 
 def randn(shape, dtype, rng, device):
@@ -247,9 +284,10 @@ def decode_inputs(case, dtype, seed, device):
             randn((B, Skv, Hkv, hd), dtype, rng, device))
 
 
-def over_bound(got, want, dtype) -> tuple:
-    """(max |got - want|, elements over atol + rtol * |want|)."""
-    atol, rtol = TOLS[dtype]
+def over_bound(got, want, dtype, tol=None) -> tuple:
+    """(max |got - want|, elements over atol + rtol * |want|); (atol,
+    rtol) is ``tol``, else the bound of the inputs' dtype."""
+    atol, rtol = tol or TOLS[dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     return float(err.max()), int((err > atol + rtol * w.abs()).sum())
@@ -281,6 +319,26 @@ def decode_work(case, dtype) -> tuple:
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * hd * (2 * B * Hq + 2 * B * Hkv * live)
     return nbytes, 4 * hd * live * B * Hq
+
+
+def scan_inputs(case, seed, device, *, zero_h0=False):
+    """tests/test_kernels.py's RG-LRU inputs from a numpy seed: a decay in
+    (0, 1), b at scale 0.5, h0 standard normal (or zero)."""
+    B, S, dr = case
+    rng = np.random.default_rng(seed)
+    a = 1 / (1 + np.exp(-rng.standard_normal((B, S, dr), np.float32)))
+    b = 0.5 * rng.standard_normal((B, S, dr), np.float32)
+    h0 = rng.standard_normal((B, dr), np.float32)
+    if zero_h0:
+        h0[:] = 0
+    return tuple(torch.from_numpy(x).to(device) for x in (a, b, h0))
+
+
+def scan_work(case) -> tuple:
+    """(bytes, operations) of one scan: a and b read once, h0 read once,
+    h written once; one multiply and one add a step and channel."""
+    B, S, dr = case
+    return 4 * (3 * B * S * dr + B * dr), 2 * B * S * dr
 
 
 def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
@@ -319,8 +377,13 @@ def serve_requests(vocab: int, seed: int = 0) -> list:
                     max_new_tokens=SERVE_NEW) for n in lens]
 
 
-# the model's attention: on the card, the route to the kernels
+# the model's attention and RG-LRU scan: on the card, the routes to the
+# kernels
 ATTENTION = lm.attention
+SCAN = rec.rglru_scan
+# the model's own plain attention (the JAX package's form, bf16
+# probabilities before P V)
+MODEL_ATTENTION = layers.attention_plain
 
 
 def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0):
@@ -334,12 +397,13 @@ def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0):
 
 
 def teacher_forced(cfg, run, params, toks, plen, tokens, *,
-                   attention=ATTENTION):
+                   attention=ATTENTION, scan=SCAN):
     """Prefill logits, then one decode step per new token fed with
     ``tokens`` (B, n) at positions plen + t, with ``attention`` in the
-    model's attention's place: [(B, V) logits] * (n + 1), with the prefill
-    and per-token decode ms (host clock, synchronised)."""
-    lm.attention = attention
+    model's attention's place and ``scan`` in the RG-LRU scan's: [(B, V)
+    logits] * (n + 1), with the prefill and per-token decode ms (host
+    clock, synchronised)."""
+    lm.attention, rec.rglru_scan = attention, scan
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -355,7 +419,7 @@ def teacher_forced(cfg, run, params, toks, plen, tokens, *,
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
     finally:
-        lm.attention = ATTENTION
+        lm.attention, rec.rglru_scan = ATTENTION, SCAN
     return out, prefill_ms, decode_ms
 
 
@@ -724,11 +788,11 @@ def code_words_of(pps) -> int:
 
 def flash_phase(dev, card) -> tuple:
     """Flash attention vs its plain version on the card: every case of
-    FLASH_CASES and the qwen3-1.7b prefill shape, f32 and bf16, every tile
-    shape.  Returns (the phase's line, the largest error)."""
+    FLASH_CASES and both serving paths' prefill shapes, f32 and bf16, every
+    tile shape.  Returns (the phase's line, the largest error)."""
     t0 = time.perf_counter()
     err, n_checks = 0.0, 0
-    for i, case in enumerate(FLASH_CASES + (QWEN_PREFILL,)):
+    for i, case in enumerate(FLASH_CASES + (QWEN_PREFILL, RG_PREFILL)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(case, dtype, i, dev)
             want = fops.flash_attention_plain(q, k, v, causal=case[6],
@@ -746,7 +810,7 @@ def flash_phase(dev, card) -> tuple:
                 err = max(err, e)
                 n_checks += 1
     return ({"phase": "flash_vs_plain", "card": card, "checks": n_checks,
-             "cases": len(FLASH_CASES) + 1, "tiles": fkernel.TILES,
+             "cases": len(FLASH_CASES) + 2, "tiles": fkernel.TILES,
              "over_bound": 0, "max_abs_err": err,
              "seconds": time.perf_counter() - t0}, err)
 
@@ -792,6 +856,105 @@ class AttentionCheck:
         return got
 
 
+class ScanCheck:
+    """Stands in for the model's RG-LRU scan during a run on the card: each
+    call runs the kernel, then both plain versions on the same inputs, and
+    holds the kernel bit for bit to the sequential one and within
+    SCAN_TOL of the associative scan."""
+
+    def __init__(self):
+        self.calls, self.max_err, self.over, self.unequal = 0, 0.0, 0, 0
+
+    def __call__(self, a, b, h0):
+        got = SCAN(a, b, h0)
+        e, n = over_bound(got, rglru_scan_ref(a, b, h0), torch.float32,
+                          SCAN_TOL)
+        self.calls += 1
+        self.max_err, self.over = max(self.max_err, e), self.over + n
+        self.unequal += not torch.equal(got, rglru_scan_seq(a, b, h0))
+        return got
+
+
+def route_stats(lk, lp, vocab) -> tuple:
+    """Teacher-forced logits of one route (``lk``) against another
+    (``lp``), step by step: (tokens agreeing, logits over the elementwise
+    bf16 bound, largest logit difference, largest relative L2, tokens that
+    differ although ``lp``'s top-2 margin exceeds twice that step's largest
+    logit difference)."""
+    agree, n_over, worst, rel, flips = 0, 0, 0.0, 0.0, 0
+    for a, b in zip(lk[:-1], lp[:-1]):
+        a, b = a[:, :vocab].float(), b[:, :vocab].float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits")
+        e, n = over_bound(a, b, torch.bfloat16)
+        worst, n_over = max(worst, e), n_over + n
+        rel = max(rel, float((a - b).norm() / b.norm()))
+        top2 = b.topk(2, dim=-1).values
+        same = a.argmax(-1) == b.argmax(-1)
+        agree += int(same.sum())
+        flips += int((~same & (top2[:, 0] - top2[:, 1] > 2 * e)).sum())
+    return agree, n_over, worst, rel, flips
+
+
+def compare_routes(lk, lp, tokens, vocab, rel_bound=None) -> tuple:
+    """The kernel route (``lk``) against the plain route (``lp``): the
+    kernel route's picks are the engine's ``tokens``; relative L2 per step
+    within ``rel_bound`` (default the bf16 bound's 2e-2); tokens equal
+    outside near-ties (:func:`route_stats`).  Returns (tokens agreeing,
+    logits over the elementwise bf16 bound, largest logit difference,
+    largest relative L2)."""
+    picks_k = torch.stack([x[:, :vocab].argmax(-1) for x in lk[:-1]], 1)
+    if not torch.equal(picks_k.cpu(), torch.from_numpy(tokens).long()):
+        raise AssertionError("teacher-forced kernel run != the engine's "
+                             "tokens")
+    agree, n_over, worst, rel, flips = route_stats(lk, lp, vocab)
+    if rel > (rel_bound or TOLS[torch.bfloat16][1]) or flips:
+        raise AssertionError(f"kernel-route logits != plain-route logits: "
+                             f"relative L2 {rel}, {flips} tokens differ "
+                             f"outside a near-tie")
+    return agree, n_over, worst, rel
+
+
+def serve_main_path(arch, dev, want) -> dict:
+    """One serving path through the entry points a user calls: ``arch`` at
+    full width from seeded random weights, ServeEngine over the seeded
+    requests (after a short warm-up), every kernel's launch count set to 0
+    just before ``generate`` and read just after, held to ``want``; the
+    tokens checked for shape and range.  Returns what the phase needs."""
+    cfg = get_config(arch)
+    run = RunConfig(decode_budget=SERVE_BUDGET)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, run, params, max_batch=SERVE_BATCH)
+    reqs = serve_requests(cfg.vocab)
+    eng.generate([Request(reqs[0].prompt[:16], max_new_tokens=2)])  # warm-up
+    torch.cuda.synchronize()
+    counted = {"flash": fops.flash_attention, "decode": dops.decode_attention,
+               "rglru": rops.rglru_scan}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, expected {want}")
+    tokens = np.stack([o.tokens for o in outs])
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"tokens {tokens.shape} out of range")
+    toks, plen = eng._pad_batch(reqs)
+    return {"cfg": cfg, "run": run, "params": params, "reqs": reqs,
+            "tokens": tokens, "toks": toks, "plen": plen,
+            "fed": torch.from_numpy(tokens.astype(np.int64)).to(dev),
+            "launches": launches, "init_s": init_s, "generate_s": generate_s,
+            "n_params": sum(x.numel() for x in lm.tree_leaves(params))}
+
+
 def serve_phase(dev, card) -> tuple:
     """The LM serving path at qwen3-1.7b's full width: ServeEngine over 8
     seeded prompts (64..512 tokens), 32 new tokens each, through the
@@ -802,65 +965,19 @@ def serve_phase(dev, card) -> tuple:
     (the phase's line, {"flash": row, "decode": row} for the kernel
     table)."""
     t_phase = time.perf_counter()
-    cfg = get_config(SERVE_ARCH)
-    run = RunConfig(decode_budget=SERVE_BUDGET)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in lm.tree_leaves(params))
-    eng = ServeEngine(cfg, run, params, max_batch=SERVE_BATCH)
-    reqs = serve_requests(cfg.vocab)
-    eng.generate([Request(reqs[0].prompt[:16], max_new_tokens=2)])  # warm-up
-    torch.cuda.synchronize()
-
-    # the main path, its launches counted from 0
-    fops.flash_attention.launches = 0
-    dops.decode_attention.launches = 0
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
-    launches = {"flash": fops.flash_attention.launches,
-                "decode": dops.decode_attention.launches}
-    want = {"flash": cfg.n_layers, "decode": cfg.n_layers * SERVE_NEW}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
-    tokens = np.stack([o.tokens for o in outs])
-    if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
-            (tokens >= 0) & (tokens < cfg.vocab)).all():
-        raise AssertionError(f"tokens {tokens.shape} out of range")
+    n_layers = get_config(SERVE_ARCH).n_layers
+    m = serve_main_path(SERVE_ARCH, dev, {
+        "flash": n_layers, "decode": n_layers * SERVE_NEW, "rglru": 0})
+    cfg, run, params, reqs = m["cfg"], m["run"], m["params"], m["reqs"]
+    tokens, toks, plen, fed = m["tokens"], m["toks"], m["plen"], m["fed"]
+    launches = m["launches"]
 
     # teacher-forced: kernels, then the kernels' plain versions, same tokens
-    toks, plen = eng._pad_batch(reqs)
-    fed = torch.from_numpy(tokens.astype(np.int64)).to(dev)
     lk, prefill_ms, decode_ms = teacher_forced(cfg, run, params, toks, plen,
                                                fed)
     lp, prefill_ms_plain, decode_ms_plain = teacher_forced(
         cfg, run, params, toks, plen, fed, attention=plain_attention)
-    picks_k = torch.stack([x[:, :cfg.vocab].argmax(-1) for x in lk[:-1]], 1)
-    if not torch.equal(picks_k.cpu(), torch.from_numpy(tokens).long()):
-        raise AssertionError("teacher-forced kernel run != the engine's "
-                             "tokens")
-    # logits: normwise bf16 bound per step; tokens equal wherever the plain
-    # run's top-2 margin exceeds twice that step's largest logit difference
-    agree, n_over, worst, rel, flips = 0, 0, 0.0, 0.0, 0
-    for a, b in zip(lk[:-1], lp[:-1]):
-        a, b = a[:, :cfg.vocab].float(), b[:, :cfg.vocab].float()
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-            raise AssertionError("non-finite logits")
-        e, n = over_bound(a, b, torch.bfloat16)
-        worst, n_over = max(worst, e), n_over + n
-        rel = max(rel, float((a - b).norm() / b.norm()))
-        top2 = b.topk(2, dim=-1).values
-        same = a.argmax(-1) == b.argmax(-1)
-        agree += int(same.sum())
-        flips += int((~same & (top2[:, 0] - top2[:, 1] > 2 * e)).sum())
-    if rel > TOLS[torch.bfloat16][1] or flips:
-        raise AssertionError(f"kernel-route logits != plain-route logits: "
-                             f"relative L2 {rel}, {flips} tokens differ "
-                             f"outside a near-tie")
+    agree, n_over, worst, rel = compare_routes(lk, lp, tokens, cfg.vocab)
     # every attention call of the kernel run against the plain versions on
     # the same inputs, elementwise
     check = AttentionCheck()
@@ -912,11 +1029,11 @@ def serve_phase(dev, card) -> tuple:
                       "bound_by": "/".join(sorted(bys))}
 
     line = {"phase": "serve", "card": card, "arch": SERVE_ARCH,
-            "n_params": n_params, "layers": cfg.n_layers,
+            "n_params": m["n_params"], "layers": cfg.n_layers,
             "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt) for r in reqs],
             "padded_len": plen, "new_tokens": SERVE_NEW,
             "decode_budget": SERVE_BUDGET, "launches": launches,
-            "init_s": init_s, "generate_s": generate_s,
+            "init_s": m["init_s"], "generate_s": m["generate_s"],
             "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
             "plain_prefill_ms": prefill_ms_plain,
             "plain_decode_ms_per_token": decode_ms_plain,
@@ -927,6 +1044,181 @@ def serve_phase(dev, card) -> tuple:
             "attention_max_abs_err": check.max_err,
             "attention_over_bound": check.over,
             "kernel_ms": {k_: r["ms"] for k_, r in rows.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t_phase}
+    return line, rows
+
+
+def rglru_phase(dev, card) -> tuple:
+    """The RG-LRU scan kernel vs its plain versions on the card: every case
+    of RGLRU_CASES and the recurrentgemma-2b prefill (h0 random and zero)
+    and decode shapes; kernel, plain and sequential times and the bound at
+    the prefill shape.  Returns (the phase's line, the largest error)."""
+    t0 = time.perf_counter()
+    err, n_checks = 0.0, 0
+    cases = [(c, False) for c in RGLRU_CASES + (RG_SCAN_PREFILL,
+                                               RG_SCAN_DECODE)]
+    cases.append((RG_SCAN_PREFILL, True))
+    for i, (case, zero_h0) in enumerate(cases):
+        a, b, h0 = scan_inputs(case, 200 + i, dev, zero_h0=zero_h0)
+        got = rops.rglru_scan(a, b, h0)
+        seq = rglru_scan_seq(a, b, h0)
+        e, n_over = over_bound(got, rglru_scan_ref(a, b, h0), torch.float32,
+                               SCAN_TOL)
+        torch.cuda.synchronize()
+        if not torch.equal(got, seq) or n_over or not torch.isfinite(
+                got).all():
+            raise AssertionError(
+                f"rglru kernel != plain: {case} h0 zero {zero_h0}: equal to "
+                f"the sequential version {torch.equal(got, seq)}, {n_over} "
+                f"elements over the bound of the associative scan, max err "
+                f"{e}")
+        err = max(err, e)
+        n_checks += 2
+    a, b, h0 = scan_inputs(RG_SCAN_PREFILL, 7, dev)
+    bnd, by = bound_ms(*scan_work(RG_SCAN_PREFILL), torch.float32)
+    return ({"phase": "rglru_vs_plain", "card": card, "checks": n_checks,
+             "cases": [list(c) + [z] for c, z in cases],
+             "unequal_to_sequential": 0, "over_bound": 0,
+             "max_abs_err_vs_associative": err,
+             "prefill_shape": RG_SCAN_PREFILL,
+             "ms": cuda_ms(lambda: rops.rglru_scan(a, b, h0)),
+             "plain_ms": cuda_ms(lambda: rglru_scan_ref(a, b, h0), reps=3),
+             "sequential_ms": cuda_ms(lambda: rglru_scan_seq(a, b, h0),
+                                      reps=1),
+             "bound_ms": bnd, "bound_by": by,
+             "seconds": time.perf_counter() - t0}, err)
+
+
+def serve_rg_phase(dev, card) -> tuple:
+    """The hybrid serving path at recurrentgemma-2b's full width and depth:
+    ServeEngine over the same 8 requests as ``serve``; launch counts read
+    around that run; the run teacher-forced through the kernels, through
+    the kernels with the scan's sequential plain version (bit for bit the
+    same logits), through the plain versions (attention and scan) and
+    through the JAX model's own plain functions, on the card; every
+    attention and scan call of the kernel run held to its plain versions;
+    per-kernel times at the run's shapes.  Returns (the phase's line,
+    {"flash": row, "rglru": row} for the kernel table)."""
+    t_phase = time.perf_counter()
+    kinds = get_config(RG_ARCH).layer_kinds()
+    n_rglru, n_local = kinds.count("rglru"), kinds.count("local_attn")
+    m = serve_main_path(RG_ARCH, dev, {
+        "flash": n_local, "decode": 0, "rglru": n_rglru * (1 + SERVE_NEW)})
+    cfg, run, params, reqs = m["cfg"], m["run"], m["params"], m["reqs"]
+    tokens, toks, plen, fed = m["tokens"], m["toks"], m["plen"], m["fed"]
+    launches = m["launches"]
+    if plen > cfg.window:
+        raise AssertionError("the prompts outgrow the window: causal SDPA "
+                             "is no longer the library's form of it")
+
+    # teacher-forced: kernels, then their plain versions, same tokens
+    lk, prefill_ms, decode_ms = teacher_forced(cfg, run, params, toks, plen,
+                                               fed)
+    # the scan end to end: with only the scan swapped for its sequential
+    # plain version, every logit is the kernel route's, bit for bit
+    ls, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              scan=rglru_scan_seq)
+    if not all(map(torch.equal, lk, ls)):
+        raise AssertionError("the scan kernel's route != its sequential "
+                             "plain version's")
+    # the plain route: attention's plain version and the scan's sequential
+    # one (the recurrence the TPU kernel and this one compute)
+    lp, prefill_ms_plain, decode_ms_plain = teacher_forced(
+        cfg, run, params, toks, plen, fed, attention=plain_attention,
+        scan=rglru_scan_seq)
+    # the noise floor of 26 random-weight layers: the JAX model's own plain
+    # functions (its attention, bf16 probabilities; the associative scan)
+    # against the plain route.  The kernel route is held to the larger of
+    # the bf16 bound's 2e-2 and that floor.
+    lf, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              attention=MODEL_ATTENTION, scan=rglru_scan_ref)
+    _, _, _, floor, flips_floor = route_stats(lf, lp, cfg.vocab)
+    if flips_floor:
+        raise AssertionError(f"{flips_floor} tokens differ between the "
+                             "plain routes outside a near-tie")
+    agree, n_over, worst, rel = compare_routes(
+        lk, lp, tokens, cfg.vocab,
+        rel_bound=max(TOLS[torch.bfloat16][1], floor))
+    acheck, scheck = AttentionCheck(), ScanCheck()
+    teacher_forced(cfg, run, params, toks, plen, fed, attention=acheck,
+                   scan=scheck)
+    if acheck.over or acheck.calls != n_local:
+        raise AssertionError(f"attention calls {acheck.calls}: "
+                             f"{acheck.over} elements over the bf16 bound")
+    if (scheck.over or scheck.unequal
+            or scheck.calls != n_rglru * (1 + SERVE_NEW)):
+        raise AssertionError(f"scan calls {scheck.calls}: {scheck.over} "
+                             f"elements over the bound, {scheck.unequal} "
+                             "calls not equal to the sequential version")
+
+    # per-kernel times at the run's shapes (random inputs of those shapes)
+    rows = {}
+    B, Hq, Hkv, hd = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    case = (B, plen, plen, Hq, Hkv, hd, True, cfg.window)
+    q, k, v = flash_inputs(case, torch.bfloat16, 9, dev)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bnd, by = bound_ms(*flash_work(case, torch.bfloat16), torch.bfloat16)
+    rows["flash"] = {
+        "launches": launches["flash"],
+        "ms": cuda_ms(lambda: fops.flash_attention(q, k, v, causal=True,
+                                                   window=cfg.window)),
+        "plain_ms": cuda_ms(lambda: fops.flash_attention_plain(
+            q, k, v, causal=True, window=cfg.window), reps=5),
+        "bound_ms": bnd, "bound_by": by,
+        # plen <= window: causal attention is the same function
+        "library_ms": cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True))}
+    # the scan: per launch, averaged over the run's launches (one prefill
+    # shape and SERVE_NEW decode steps per RG-LRU layer)
+    per_shape = {}
+    for shape in ((B, plen, cfg.rnn_width), (B, 1, cfg.rnn_width)):
+        a, b, h0 = scan_inputs(shape, 10, dev)
+        bnd, by = bound_ms(*scan_work(shape), torch.float32)
+        per_shape[shape[1]] = {
+            "ms": cuda_ms(lambda: rops.rglru_scan(a, b, h0)),
+            "plain_ms": cuda_ms(lambda: rglru_scan_ref(a, b, h0), reps=3),
+            "bound_ms": bnd, "bound_by": by}
+    mix = {plen: 1 / (1 + SERVE_NEW), 1: SERVE_NEW / (1 + SERVE_NEW)}
+    rows["rglru"] = {
+        "launches": launches["rglru"],
+        **{key: sum(w * per_shape[s][key] for s, w in mix.items())
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "/".join(sorted({r["bound_by"]
+                                     for r in per_shape.values()})),
+        "library_ms": None}
+
+    line = {"phase": "serve_recurrentgemma", "card": card, "arch": RG_ARCH,
+            "n_params": m["n_params"], "layers": cfg.n_layers,
+            "rglru_layers": n_rglru, "local_attn_layers": n_local,
+            "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt) for r in reqs],
+            "padded_len": plen, "new_tokens": SERVE_NEW,
+            "decode_budget": SERVE_BUDGET, "launches": launches,
+            "init_s": m["init_s"], "generate_s": m["generate_s"],
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "plain_prefill_ms": prefill_ms_plain,
+            "plain_decode_ms_per_token": decode_ms_plain,
+            "token_agreement_plain": agree / (SERVE_BATCH * SERVE_NEW),
+            "logits_max_rel_l2": rel, "logits_max_abs_err": worst,
+            "logits_elements_over_elementwise_bound": n_over,
+            "logits_within_2e-2": rel <= TOLS[torch.bfloat16][1],
+            "plain_routes_max_rel_l2": floor,
+            "logits_bit_equal_with_the_sequential_scan": True,
+            "attention_calls_checked": acheck.calls,
+            "attention_max_abs_err": acheck.max_err,
+            "attention_over_bound": acheck.over,
+            "scan_calls_checked": scheck.calls,
+            "scan_max_abs_err_vs_associative": scheck.max_err,
+            "scan_over_bound": scheck.over,
+            "scan_unequal_to_sequential": scheck.unequal,
+            "kernel_ms": {"flash": rows["flash"]["ms"],
+                          "rglru_prefill": per_shape[plen]["ms"],
+                          "rglru_decode": per_shape[1]["ms"]},
+            "rglru_bound_ms": {"prefill": per_shape[plen]["bound_ms"],
+                               "decode": per_shape[1]["bound_ms"]},
+            "rglru_plain_ms": {"prefill": per_shape[plen]["plain_ms"],
+                               "decode": per_shape[1]["plain_ms"]},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_phase}
     return line, rows
@@ -969,11 +1261,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. build: the three kernel libraries from src/, one nvcc each, all
+    # 1. build: the four kernel libraries from src/, one nvcc each, all
     #    started together
     t0 = time.perf_counter()
     mods = {"megastep": mkernel, "flash_attention": fkernel,
-            "decode_attention": dkernel}
+            "decode_attention": dkernel, "rglru_scan": rkernel}
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = {name: ex.submit(mod.build) for name, mod in mods.items()}
         built = {name: f.result() for name, f in futs.items()}
@@ -983,6 +1275,8 @@ def main() -> int:
     lib, report = built["megastep"]
     emit({"phase": "build", "card": card, "seconds": build_s,
           "library": lib.name, "ptxas": nvcc.ptxas_lines(report),
+          "rglru_scan_library": built["rglru_scan"][0].name,
+          "rglru_scan_ptxas": nvcc.ptxas_lines(built["rglru_scan"][1]),
           "kind": kind, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     attn_ptxas = {}
@@ -999,6 +1293,10 @@ def main() -> int:
                                + v.get("spill_loads", 0)
                                for v in table.values()),
             "main_path_instance": main[0] if main else None}
+    rg = [v for k, v in nvcc.ptxas_table(built["flash_attention"][1]).items()
+          if RG_INSTANCE in k]
+    attn_ptxas["flash_attention"]["recurrentgemma_instance"] = (
+        rg[0] if rg else None)
     emit({"phase": "attn_build", "card": card, "seconds": build_s,
           **attn_ptxas})
 
@@ -1258,8 +1556,17 @@ def main() -> int:
     # 10. the LM serving path: full-width qwen3-1.7b, random weights
     serve, attn_rows = serve_phase(dev, card)
     emit(serve)
+    torch.cuda.empty_cache()  # qwen3-1.7b's weights went with the phase
 
-    # 11. the kernel table, the card, and the device line (last)
+    # 11. the RG-LRU scan kernel vs its plain versions, on the card
+    line, err_by["rglru"] = rglru_phase(dev, card)
+    emit(line)
+
+    # 12. the hybrid serving path: full-width recurrentgemma-2b
+    serve_rg, rg_rows = serve_rg_phase(dev, card)
+    emit(serve_rg)
+
+    # 13. the kernel table, the card, and the device line (last)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -1286,7 +1593,21 @@ def main() -> int:
          "source": "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:58",
-         "max_abs_err": err_by["decode"], **attn_rows["decode"]}]})
+         "max_abs_err": err_by["decode"], **attn_rows["decode"]},
+        {"name": "flash_attention (recurrentgemma-2b prefill, window 2048)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         "max_abs_err": max(err_by["flash"], serve_rg["attention_max_abs_err"]),
+         **rg_rows["flash"]},
+        {"name": "rglru_scan (recurrentgemma-2b, prefill and decode)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:40",
+         "max_abs_err": max(err_by["rglru"],
+                            serve_rg["scan_max_abs_err_vs_associative"]),
+         **rg_rows["rglru"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the port's LM serving time goes on one NVIDIA GPU.
 
-    PYTHONPATH=src python scripts/torch_serve_profile.py
+    PYTHONPATH=src python scripts/torch_serve_profile.py [--arch NAME]
 
-Builds qwen3-1.7b at full width from a seeded ``torch.Generator`` (random
-weights), prefills 8 prompts padded to 512 tokens (decode budget 64), then
-decodes 8 tokens, all through the attention kernels, under
-``torch.profiler``.  Prints one JSON line per part (prefill, decode): the
+Builds ``--arch`` (default qwen3-1.7b; recurrentgemma-2b is the other
+serving path of chip_smoke.py) at full width from a seeded
+``torch.Generator`` (random weights), prefills 8 prompts padded to 512
+tokens (decode budget 64), then decodes 8 tokens, all through the kernels,
+under ``torch.profiler``.  Prints one JSON line per part (prefill, decode): the
 host wall time (synchronised), the device time summed over the kernels
 the profiler saw (device-side events only), the device idle share (1 -
 device / wall), and the top kernels by device time; then the card line.
@@ -14,6 +15,7 @@ Needs a card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -28,7 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
-ARCH, BATCH, PROMPT_LEN, DECODE_STEPS, TOP = "qwen3-1.7b", 8, 512, 8, 12
+BATCH, PROMPT_LEN, DECODE_STEPS, TOP = 8, 512, 8, 12
 
 
 def device_us(evt) -> float:
@@ -63,12 +65,15 @@ def profiled(fn, label: str, top: int) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device is available",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     run = RunConfig(decode_budget=64)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(0)
@@ -92,7 +97,7 @@ def main() -> int:
     decode()
     prefill()
     for fn, label in ((prefill, "prefill"), (decode, "decode")):
-        out = profiled(fn, label, TOP)
+        out = {"arch": args.arch, **profiled(fn, label, TOP)}
         if label == "decode":
             out["per_token_wall_ms"] = out["wall_ms"] / DECODE_STEPS
         print(json.dumps(out), flush=True)

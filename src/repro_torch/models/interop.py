@@ -2,7 +2,9 @@
 
 A nested dict of numpy arrays (``jax.tree.map(np.asarray, params)`` of the
 JAX package's ``init_params`` tree gives one) becomes the port's tree of
-tensors on a device, leaf for leaf and with the same dtypes, and back.
+tensors on a device, leaf for leaf and with the same dtypes, and back —
+every subtree, the stacked ``tiles``, the ``tail`` blocks and the RG-LRU
+``lam`` included.
 """
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import numerics
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
@@ -65,20 +66,33 @@ def dot(x, w):
 def rms_norm(x, w, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * w.float()
+    var = numerics.mean_sq(x)
+    out = x * numerics.rsqrt(var + eps) * w.float()
     return out.to(dt)
 
 
-def silu(x):
-    """``jax.nn.silu`` as XLA evaluates it: x * (1 / (1 + exp(-x))), each
-    op rounded to x's dtype (bit-equal in bf16, where ``torch.sigmoid``
+def sigmoid(x):
+    """``jax.nn.sigmoid`` as XLA evaluates it: 1 / (1 + exp(-x)), each op
+    rounded to x's dtype (bit-equal in bf16, where ``torch.sigmoid``
     rounds once and differs in the last bit)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return 1.0 / (1.0 + numerics.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x), rounded as XLA rounds it."""
+    return x * sigmoid(x)
 
 
 def gelu(x):
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu(approximate=True)``.  On CPU tensors as XLA evaluates
+    it, op by op in x's dtype with its constants rounded to that dtype
+    (bit-equal to the JAX package); on the card PyTorch's fused tanh gelu,
+    rounded once."""
+    if x.device.type != "cpu":
+        return F.gelu(x, approximate="tanh")
+    c0 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    c1 = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * (x * x))))))
 
 
 def act_fn(name: str):

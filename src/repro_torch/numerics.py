@@ -1,0 +1,197 @@
+"""f32 arithmetic rounded as the JAX package's CPU backend rounds it.
+
+XLA compiles for the CPU with floating-point contraction on: every
+multiply whose only use is an add becomes one fused multiply-add, rounded
+once (``a * h + b`` in the RG-LRU scan and in the polynomials below).
+Its ``exp`` and ``log1p`` are its own polynomials, not the C library's,
+and both differ from PyTorch's in the last bit of a few per cent of
+their f32 results; its ``sqrt`` is correctly rounded, which PyTorch's
+vectorised CPU ``sqrt`` is not always; it sums a row in windows of 32
+(:func:`mean_sq`).  On CPU tensors the functions here reproduce XLA's
+(the constants and the order of operations are those of XLA's CPU
+lowering), so the port's CPU route equals the JAX package bit for bit.
+One function cannot be reproduced: XLA's ``rsqrt`` refines the CPU's own
+hardware estimate with two Newton steps, so its last bit depends on the
+processor; :func:`rsqrt` rounds correctly, which agrees with it on almost
+every input.  On CUDA tensors every function but :func:`fma` is
+PyTorch's own: the card route is held to bounds, not bits.
+
+:func:`fma` is exact on every device: the product in f64 is exact, and
+the f64 sum rounded to odd (TwoSum's error sets the last bit) then to f32
+is the correctly rounded f32 result.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _f32(pattern: str) -> float:
+    """An f32 constant from the 64-bit pattern LLVM prints it with."""
+    return float(np.array(int(pattern, 16), np.uint64).view(np.float64))
+
+
+def _tensor(x, like):
+    return x if torch.is_tensor(x) else torch.tensor(
+        x, dtype=torch.float32, device=like.device)
+
+
+def fma(a, b, c):
+    """round_f32(a * b + c), one rounding.  Any operand may be a float."""
+    like = next(x for x in (a, b, c) if torch.is_tensor(x))
+    a, b, c = (_tensor(x, like).double() for x in (a, b, c))
+    p = a * b  # exact: 48 significant bits
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)  # TwoSum: s + err == p + c exactly
+    bits = s.view(torch.int64)
+    to_odd = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(to_odd, bits + step, bits).view(torch.float64).float()
+
+
+# XLA's f32 exp: range reduction by ln 2 in two parts, a degree-6
+# polynomial, then the power of two built in the exponent bits
+_EXP_LO, _EXP_HI = _f32("0xC055F33340000000"), _f32("0x4056333340000000")
+_LOG2E = _f32("0x3FF7154760000000")
+_LN2_HI, _LN2_LO = _f32("0x3FE6300000000000"), _f32("0xBF2BD01060000000")
+_EXP_P = [_f32(h) for h in (
+    "0x3F2A0D2CE0000000", "0x3F56E879C0000000", "0x3F81112100000000",
+    "0x3FA5553820000000", "0x3FC5555540000000")]
+
+
+def _exp_xla(x):
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    fx = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(fx, -_LN2_HI, x)
+    r = fma(fx, -_LN2_LO, r)
+    p = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in (*_EXP_P[2:], 0.5):
+        p = fma(p, r, c)
+    p = fma(p, r * r, r) + 1.0
+    return p * ((fx.to(torch.int32) << 23) + 0x3F800000).view(torch.float32)
+
+
+# XLA's f32 log1p: a rational function for |x| < sqrt(2) - 1, else the
+# log of 1 + x (mantissa in [sqrt(1/2), sqrt(2)), a degree-8 polynomial)
+_L1P_SMALL = _f32("0x3FDA8279A0000000")
+_L1P_Q = [_f32(h) for h in (
+    "0x402E2035A0000000", "0x4054C30B60000000", "0x406BB865A0000000",
+    "0x4073519460000000", "0x406B0DB140000000", "0x404E0F3040000000")]
+_L1P_P = [_f32(h) for h in (
+    "0x3F07BC0960000000", "0x3FDFE818A0000000", "0x401A509F40000000",
+    "0x403DE97380000000", "0x404E798EC0000000", "0x404C8E75A0000000",
+    "0x40340A2020000000")]
+_LOG_P = [_f32(h) for h in (
+    "0x3FB2043760000000", "0xBFBD7A3700000000", "0xBFBFCBA9E0000000",
+    "0x3FC23D37E0000000", "0x3FC999D580000000", "0xBFCFFFFF80000000",
+    "0x3FBDE4A340000000", "0xBFC555CA00000000", "0x3FD5555540000000")]
+_SQRT_HALF, _FLT_MIN = _f32("0x3FE6A09E60000000"), _f32("0x3810000000000000")
+
+
+def _log1p_xla(x):
+    x2 = x * x
+    q = torch.ones_like(x)
+    for c in _L1P_Q:
+        q = fma(q, x, c)
+    p = torch.full_like(x, _L1P_P[0])
+    for c in _L1P_P[1:]:
+        p = fma(p, x, c)
+    small = x + fma(x2, -0.5, (x * x2) * (p / q))
+
+    x1 = x + 1.0
+    bits = torch.clamp_min(x1, _FLT_MIN).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    lt = m < _SQRT_HALF
+    e = e - lt.float()
+    z = (m - 1.0) + torch.where(lt, m, torch.zeros_like(m))
+    zz = z * z
+    z3 = zz * z
+    c = _LOG_P
+    pa = fma(fma(z, c[0], c[1]), z, c[6])
+    pb = fma(fma(z, c[2], c[3]), z, c[7])
+    pc = fma(fma(z, c[4], c[5]), z, c[8])
+    poly = fma(fma(pa, z3, pb), z3, pc)
+    big = fma(e, _LN2_HI, fma(zz, -0.5, z) + fma(poly, z3, e * _LN2_LO))
+    big = torch.where(x1 == float("inf"), x1, big)
+    big = torch.where(x1 == 0, torch.full_like(x1, -float("inf")), big)
+    big = torch.where(~(x1 >= 0), torch.full_like(x1, float("nan")), big)
+    return torch.where(x.abs() < _L1P_SMALL, small, big)
+
+
+def _on_cpu(x) -> bool:
+    return x.device.type == "cpu"
+
+
+def exp(x):
+    """exp in x's dtype (bf16 computes in f32 and rounds once, as XLA
+    does)."""
+    if not _on_cpu(x):
+        return torch.exp(x)
+    return _exp_xla(x.float()).to(x.dtype)
+
+
+def log1p(x):
+    if not _on_cpu(x):
+        return torch.log1p(x)
+    return _log1p_xla(x.float()).to(x.dtype)
+
+
+def sqrt(x):
+    """Correctly rounded (via f64 on the CPU: rounding twice is exact for
+    a square root)."""
+    if not _on_cpu(x):
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    out = torch.clamp_min(x, 0.0) + log1p(exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def rsqrt(x):
+    """1 / sqrt(x), correctly rounded on the CPU (see the module's note)."""
+    if not _on_cpu(x):
+        return torch.rsqrt(x)
+    return torch.rsqrt(x.double()).to(x.dtype)
+
+
+_WINDOW = 32  # XLA's CPU reduction splits a row into windows of this size
+
+
+def _sum_rows(x):
+    """Sum the last axis left to right."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def mean_sq(x):
+    """mean(x * x) over the last axis of f32 ``x``, keeping the axis.
+
+    On the CPU in XLA's order: a row of at most 32 accumulates
+    ``acc = fma(x_i, x_i, acc)`` from 0; a longer row squares first, pads
+    to a multiple of 32 with zeros (half on each side, the odd one on the
+    right), sums each window left to right and reduces the window sums
+    the same way until at most 32 remain, which it sums left to right.
+    The mean multiplies by 1/N rounded to f32."""
+    n = x.shape[-1]
+    if not _on_cpu(x):
+        return torch.mean(x * x, dim=-1, keepdim=True)
+    if n <= _WINDOW:
+        acc = torch.zeros_like(x[..., 0])
+        for i in range(n):
+            acc = fma(x[..., i], x[..., i], acc)
+    else:
+        x = x * x
+        while x.shape[-1] > _WINDOW:
+            m = -(-x.shape[-1] // _WINDOW)
+            pad = m * _WINDOW - x.shape[-1]
+            x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+            x = _sum_rows(x.reshape(x.shape[:-1] + (m, _WINDOW)))
+        acc = _sum_rows(x)
+    return (acc * float(np.float32(1.0 / n)))[..., None]

@@ -5,8 +5,13 @@ are batched up to ``max_batch``; prompts are left-padded with token 0 to
 the longest prompt of the batch, and the padding is not masked (it is
 attended to as tokens at positions 0..); one prefill, then one decode step
 per new token with one argmax and one host copy per step; the cache must
-hold every new token (``run.decode_budget``).  On the card, attention runs
-through the flash-attention (prefill) and flash-decode kernels.
+hold every new token (``run.decode_budget``).  On the card the model's
+kernels run: for the attention-only decoders (qwen3, gemma-7b, qwen1.5)
+flash attention for every prefill layer and flash-decode for every decode
+step's layer; for recurrentgemma-2b flash attention (with the window) for
+every local-attention prefill and the RG-LRU scan kernel for every RG-LRU
+layer's prefill and decode step, the ring decode of local attention being
+the model's plain masked attention.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-megastep, flash attention and flash-decode, and the LM serving path.
+megastep, flash attention, flash-decode and the RG-LRU scan, and the LM
+serving paths (attention-only and hybrid).
 
 These tests need a CUDA card and skip without one (a skip is not a pass).
 They import no JAX, so they run on the machine with the card:
@@ -7,7 +8,7 @@ They import no JAX, so they run on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 ``chip_smoke.py`` holds the kernels to the same standard at the full
-census size and at qwen3-1.7b's full width.
+census size and at qwen3-1.7b's and recurrentgemma-2b's full width.
 """
 import importlib.util
 from pathlib import Path
@@ -26,6 +27,8 @@ from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.megastep import ops as mops
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref
+from repro_torch.kernels.rglru_scan import ops as rops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref, rglru_scan_seq
 from repro_torch.models import lm
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.trace import policy as tpolicy
@@ -264,3 +267,72 @@ def test_serve_engine_runs_the_kernels(card):
     picks = np.stack([x[:, :cfg.vocab].argmax(-1).cpu().numpy()
                       for x in logits[:-1]], 1)
     np.testing.assert_array_equal(picks, tokens)
+
+
+# -- the RG-LRU scan (tests/test_kernels.py:131's bound) ---------------------
+
+@pytest.mark.parametrize("zero_h0", [False, True])
+@pytest.mark.parametrize("case", SMOKE.RGLRU_CASES, ids=str)
+def test_rglru_kernel_matches_plain(card, case, zero_h0):
+    """Bit for bit against the sequential version (one fused multiply-add
+    a step, as the kernel), within the bound of the associative scan; one
+    counted launch per call; any S and width."""
+    a, b, h0 = SMOKE.scan_inputs(case, 3, card, zero_h0=zero_h0)
+    n0 = rops.rglru_scan.launches
+    got = rops.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert rops.rglru_scan.launches == n0 + 1
+    assert torch.equal(got, rglru_scan_seq(a, b, h0))
+    err, n_over = SMOKE.over_bound(got, rglru_scan_ref(a, b, h0),
+                                   torch.float32, SMOKE.SCAN_TOL)
+    assert n_over == 0, f"max err {err}"
+
+
+def test_rglru_kernel_raises_on_what_it_does_not_take(card):
+    a, b, h0 = SMOKE.scan_inputs((2, 8, 64), 4, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), b,
+                        h0)
+    with pytest.raises(ValueError, match="on cpu"):
+        rops.rglru_scan(a, b, h0.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        rops.rglru_scan(a.bfloat16(), b.bfloat16(), h0.bfloat16())
+
+
+def test_serve_engine_runs_the_rglru_kernel(card):
+    """recurrentgemma-2b SMOKE with a tail (5 layers: R R A R R) on the
+    card: every RG-LRU layer one scan launch a prefill and a token, every
+    local-attention prefill one flash launch; the engine's tokens are the
+    argmax of its teacher-forced kernel-route logits; every attention and
+    scan call of that run within its plain versions' bound (the scan bit
+    for bit to the sequential one, and so the whole route's logits); the
+    kernel route within the bf16 bound of the plain route in norm (five
+    layers keep it there)."""
+    from dataclasses import replace
+    cfg = replace(get_smoke("recurrentgemma-2b"), n_layers=5)
+    run = RunConfig(attn_chunk=8, remat_policy="none", decode_budget=6)
+    params = lm.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(cfg, run, params, max_batch=2)
+    prompts = [np.arange(20, dtype=np.int32), np.arange(5, dtype=np.int32)]
+    fops.flash_attention.launches = dops.decode_attention.launches = 0
+    rops.rglru_scan.launches = 0
+    outs = eng.generate([Request(p, max_new_tokens=6) for p in prompts])
+    assert fops.flash_attention.launches == 1
+    assert dops.decode_attention.launches == 0
+    assert rops.rglru_scan.launches == 4 * 7
+    tokens = np.stack([o.tokens for o in outs])
+    toks, plen = eng._pad_batch([Request(p) for p in prompts])
+    fed = torch.from_numpy(tokens.astype(np.int64)).to(card)
+    acheck, scheck = SMOKE.AttentionCheck(), SMOKE.ScanCheck()
+    lk, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                    attention=acheck, scan=scheck)
+    assert acheck.calls == 1 and acheck.over == 0
+    assert scheck.calls == 4 * 7 and scheck.over == 0
+    assert scheck.unequal == 0
+    ls, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                    scan=rglru_scan_seq)
+    assert all(map(torch.equal, lk, ls))  # the scan's route, bit for bit
+    lp, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                    attention=SMOKE.plain_attention,
+                                    scan=rglru_scan_seq)
+    SMOKE.compare_routes(lk, lp, tokens, cfg.vocab)

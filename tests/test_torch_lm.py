@@ -283,15 +283,12 @@ def test_configs_equal_jax():
 
 
 NOT_PORTED = {
-    "local_attn": dict(block_pattern=("attn", "local_attn"), window=8),
-    "rglru": dict(block_pattern=("rglru", "attn")),
     "mlstm": dict(block_pattern=("mlstm",)),
     "slstm": dict(block_pattern=("attn", "slstm")),
     "moe": dict(moe=jax_configs.MoeConfig(n_experts=4, top_k=2,
                                           d_ff_expert=32)),
     "encdec": dict(kind="encdec", enc_layers=2),
     "frontend": dict(frontend="patch"),
-    "tail blocks": dict(block_pattern=("attn", "attn"), n_layers=3),
 }
 
 
@@ -308,7 +305,8 @@ def test_not_ported_features_raise(model, name):
 
 
 def test_every_config_outside_the_slice_raises():
-    ported = {"qwen3-1.7b", "qwen3-4b", "gemma-7b", "qwen1.5-110b"}
+    ported = {"qwen3-1.7b", "qwen3-4b", "gemma-7b", "qwen1.5-110b",
+              "recurrentgemma-2b"}
     for arch in configs.ARCHS:
         cfg = configs.get_smoke(arch)
         if arch in ported:
@@ -319,8 +317,8 @@ def test_every_config_outside_the_slice_raises():
 
 
 def test_layers_primitives_equal_jax():
-    """rms_norm, rope, silu, gelu and the MLP in bf16 from the same inputs:
-    bit for bit, except gelu (2e-2)."""
+    """rms_norm, rope, silu and gelu in bf16 from the same inputs: bit for
+    bit."""
     from repro.models import layers as jl
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 7, 4, 16)).astype(np.float32) * 3
@@ -333,7 +331,6 @@ def test_layers_primitives_equal_jax():
              layers.rms_norm(tx, torch.from_numpy(w))),
             ("rope", jl.apply_rope(jx, jnp.asarray(pos), 1e6),
              layers.apply_rope(tx, torch.from_numpy(pos), 1e6)),
-            ("silu", jax.nn.silu(jx), layers.silu(tx))):
+            ("silu", jax.nn.silu(jx), layers.silu(tx)),
+            ("gelu", jl.gelu(jx), layers.gelu(tx))):
         np.testing.assert_array_equal(_np(t), _np(j), err_msg=name)
-    np.testing.assert_allclose(_np(layers.gelu(tx)), _np(jl.gelu(jx)),
-                               atol=ATOL, rtol=RTOL)
