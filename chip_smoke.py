@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two main paths, each driven through the entry points a user calls, with
+The main paths, each driven through the entry points a user calls, with
 every kernel launch counted from 0 just before and read just after:
 
 * The census: 500 simulated AArch64 processes (5 interception mechanisms
@@ -28,13 +28,20 @@ every kernel launch counted from 0 just before and read just after:
   layer's scan one launch of the CUDA rglru_scan kernel (prefill and each
   decode step), every local-attention prefill one flash-attention launch
   with the window; the ring decode is the model's plain masked attention.
+* xLSTM serving: the same engine over xlstm-350m at full width and depth
+  (24 layers on the pattern mLSTM x 3, sLSTM: 18 mLSTM and 6 sLSTM
+  layers, d_model 1024, 4 heads of 512 after the mLSTM's up-projection),
+  the same requests — every mLSTM layer's prefill and decode step one
+  launch of the CUDA mlstm_chunk kernel (the state C, n carried in and
+  out); the sLSTM is plain PyTorch, a loop over time.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
-1. ``build``: the four kernel libraries from ``src/`` (one nvcc each,
+1. ``build``: the five kernel libraries from ``src/`` (one nvcc each,
    sm_90a, all started together), megastep's and rglru_scan's ptxas
    reports; ``attn_build``: the attention libraries' ptxas summary (the
-   instances both serving paths launch);
+   instances both serving paths launch); ``mlstm_build``: the mLSTM
+   kernel's registers, spills and dynamic shared memory;
 2. ``kernel_vs_plain``: megastep vs its plain PyTorch version on the card,
    one chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit
    for bit — from the emulation-off census and seeded random states, from
@@ -76,7 +83,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     to the larger of 2e-2 and the distance between the two plain routes
     (the kernels' plain versions; the JAX model's own functions), which
     26 random-weight layers put above 2e-2;
-13. the kernel table line, the card line, then the device line (last).
+13. ``mlstm_vs_plain``: the mLSTM kernel vs its plain versions,
+    ``tests/test_kernels.py``'s cases, odd lengths, a nonzero state, a
+    decode step, xlstm-350m's prefill and decode shapes: h, C and n within
+    atol 3e-4 / rtol 3e-3 of the chunked plain version at the kernel's
+    chunk and of the sequential recurrence;
+14. ``serve_xlstm``: the xLSTM serving path, checked as
+    ``serve_recurrentgemma`` is, every mLSTM call also against its plain
+    version; the relative L2 against the plain route held to the larger
+    of 2e-2 and the largest distance among three plain routes (the
+    kernel's chunk of 64; the JAX model's 256 at prefill and 1 at decode;
+    the sequential recurrence), which 24 random-weight layers put at
+    4-11 %;
+15. the kernel table line, the card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
@@ -115,6 +134,10 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.megastep import kernel as mkernel  # noqa: E402
 from repro_torch.kernels.megastep import ops as mops  # noqa: E402
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import kernel as xkernel  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import ops as xops  # noqa: E402
+from repro_torch.kernels.mlstm_chunk.ref import (  # noqa: E402
+    mlstm_chunk_ref, mlstm_seq)
 from repro_torch.kernels.rglru_scan import kernel as rkernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
@@ -260,6 +283,18 @@ SCAN_TOL = (1e-5, 1e-4)
 RGLRU_CASES = ((2, 256, 256), (1, 512, 512), (3, 128, 1024),
                (2, 1, 300), (2, 5, 130), (2, 100, 333), (1, 777, 64))
 RG_SCAN_PREFILL, RG_SCAN_DECODE = (8, 512, 2560), (8, 1, 2560)
+# the mLSTM: tests/test_kernels.py:165-166's bound; (B, S, H, dh, a
+# nonzero state?): tests/test_kernels.py:149-154's (BH, S, dh) cases as
+# (BH, S, 1, dh), odd lengths (100, 513), a nonzero state and a decode
+# step from one; the xlstm-350m serving shapes come after (mlstm_phase)
+MLSTM_TOL = (3e-4, 3e-3)
+MLSTM_CASES = ((2, 128, 1, 64, False), (4, 256, 1, 128, False),
+               (1, 256, 1, 64, False), (1, 128, 1, 64, False),
+               (2, 100, 2, 64, False), (1, 513, 2, 128, False),
+               (2, 150, 4, 64, True), (3, 1, 4, 128, True),
+               (2, 70, 4, 512, True))
+XL_ARCH = "xlstm-350m"
+XL_PREFILL, XL_DECODE = (8, 512, 4, 512), (8, 1, 4, 512)
 
 
 def randn(shape, dtype, rng, device):
@@ -341,6 +376,42 @@ def scan_work(case) -> tuple:
     return 4 * (3 * B * S * dr + B * dr), 2 * B * S * dr
 
 
+def mlstm_inputs(case, seed, device, *, state=None):
+    """tests/test_kernels.py's mLSTM inputs from a numpy seed, q/k/v
+    rounded to bf16: N(0, 1) q, k, v and log i, log f = log sigmoid of
+    N(0, 2^2); the state zero, N(0, 0.1^2), or ``state`` (C, n)."""
+    B, S, H, dh = case[:4]
+    rng = np.random.default_rng(seed)
+    q, k, v = (randn((B, S, H, dh), torch.bfloat16, rng, device)
+               for _ in range(3))
+    log_f = -torch.nn.functional.softplus(-2 * randn((B, S, H), torch.float32,
+                                                     rng, device))
+    log_i = randn((B, S, H), torch.float32, rng, device)
+    if state is not None:
+        C0, n0 = state
+    else:
+        scale = 0.1 if len(case) > 4 and case[4] else 0.0
+        C0 = scale * randn((B, H, dh, dh), torch.float32, rng, device)
+        n0 = scale * randn((B, H, dh), torch.float32, rng, device)
+    return q, k, v, log_f.contiguous(), log_i, C0, n0
+
+
+def mlstm_work(case, K: int = xkernel.CHUNK) -> tuple:
+    """(bytes, operations) of one mLSTM call in chunks of K: q, k, v (bf16)
+    and the gates read once, (C0, n0) read and (C, n) written once, h (f32)
+    written once; per chunk of kc live rows, 4 dh operations per causal
+    pair (the gated score and its use against v) and 4 dh^2 + 4 dh per row
+    (the read of C and n, the update of C and n)."""
+    B, S, H, dh = case[:4]
+    nbytes = (3 * 2 + 4) * B * S * H * dh + 2 * 4 * B * S * H \
+        + 2 * 4 * B * H * (dh * dh + dh)
+    ops = 0
+    for t0 in range(0, S, K):
+        kc = min(K, S - t0)
+        ops += 4 * dh * kc * (kc + 1) // 2 + kc * (4 * dh * dh + 4 * dh)
+    return nbytes, ops * B * H
+
+
 def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
     """(least ms, "bytes" or "operations"): the larger of the bytes over
     the memory rate and the operations over the peak rate for the type."""
@@ -377,10 +448,11 @@ def serve_requests(vocab: int, seed: int = 0) -> list:
                     max_new_tokens=SERVE_NEW) for n in lens]
 
 
-# the model's attention and RG-LRU scan: on the card, the routes to the
-# kernels
+# the model's attention, RG-LRU scan and mLSTM: on the card, the routes to
+# the kernels
 ATTENTION = lm.attention
 SCAN = rec.rglru_scan
+MLSTM = rec.mlstm_chunk
 # the model's own plain attention (the JAX package's form, bf16
 # probabilities before P V)
 MODEL_ATTENTION = layers.attention_plain
@@ -396,14 +468,32 @@ def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0):
     return dops.decode_attention_plain(q, k, v, kv_len)
 
 
+def plain_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk):
+    """The mLSTM kernel's plain version at the kernel's own chunk, in the
+    model's mLSTM's place: the reference the kernel route is held to on
+    the card."""
+    return mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, xkernel.CHUNK)
+
+
+def model_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk):
+    """The JAX model's own form: the plain version at the model's chunk
+    (``run.mlstm_chunk`` at prefill, 1 at decode)."""
+    return mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, chunk)
+
+
+def seq_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk):
+    """The definitional recurrence, one step at a time."""
+    return mlstm_seq(q, k, v, log_f, log_i, C0, n0)
+
+
 def teacher_forced(cfg, run, params, toks, plen, tokens, *,
-                   attention=ATTENTION, scan=SCAN):
+                   attention=ATTENTION, scan=SCAN, mlstm=MLSTM):
     """Prefill logits, then one decode step per new token fed with
-    ``tokens`` (B, n) at positions plen + t, with ``attention`` in the
-    model's attention's place and ``scan`` in the RG-LRU scan's: [(B, V)
-    logits] * (n + 1), with the prefill and per-token decode ms (host
-    clock, synchronised)."""
-    lm.attention, rec.rglru_scan = attention, scan
+    ``tokens`` (B, n) at positions plen + t, with ``attention``, ``scan``
+    and ``mlstm`` in the places of the model's attention, RG-LRU scan and
+    mLSTM: [(B, V) logits] * (n + 1), with the prefill and per-token
+    decode ms (host clock, synchronised)."""
+    lm.attention, rec.rglru_scan, rec.mlstm_chunk = attention, scan, mlstm
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -419,7 +509,8 @@ def teacher_forced(cfg, run, params, toks, plen, tokens, *,
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
     finally:
-        lm.attention, rec.rglru_scan = ATTENTION, SCAN
+        lm.attention, rec.rglru_scan, rec.mlstm_chunk = (ATTENTION, SCAN,
+                                                          MLSTM)
     return out, prefill_ms, decode_ms
 
 
@@ -875,6 +966,23 @@ class ScanCheck:
         return got
 
 
+class MlstmCheck:
+    """Stands in for the model's mLSTM during a run on the card: each call
+    runs the kernel, then its plain version at the kernel's chunk on the
+    same inputs, and holds h, C and n to MLSTM_TOL elementwise."""
+
+    def __init__(self):
+        self.calls, self.max_err, self.over = 0, 0.0, 0
+
+    def __call__(self, *args, chunk):
+        got = MLSTM(*args, chunk=chunk)
+        for g, w in zip(got, plain_mlstm(*args, chunk=chunk)):
+            e, n = over_bound(g, w, torch.float32, MLSTM_TOL)
+            self.max_err, self.over = max(self.max_err, e), self.over + n
+        self.calls += 1
+        return got
+
+
 def route_stats(lk, lp, vocab) -> tuple:
     """Teacher-forced logits of one route (``lk``) against another
     (``lp``), step by step: (tokens agreeing, logits over the elementwise
@@ -933,7 +1041,7 @@ def serve_main_path(arch, dev, want) -> dict:
     eng.generate([Request(reqs[0].prompt[:16], max_new_tokens=2)])  # warm-up
     torch.cuda.synchronize()
     counted = {"flash": fops.flash_attention, "decode": dops.decode_attention,
-               "rglru": rops.rglru_scan}
+               "rglru": rops.rglru_scan, "mlstm": xops.mlstm_chunk}
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -967,7 +1075,8 @@ def serve_phase(dev, card) -> tuple:
     t_phase = time.perf_counter()
     n_layers = get_config(SERVE_ARCH).n_layers
     m = serve_main_path(SERVE_ARCH, dev, {
-        "flash": n_layers, "decode": n_layers * SERVE_NEW, "rglru": 0})
+        "flash": n_layers, "decode": n_layers * SERVE_NEW, "rglru": 0,
+        "mlstm": 0})
     cfg, run, params, reqs = m["cfg"], m["run"], m["params"], m["reqs"]
     tokens, toks, plen, fed = m["tokens"], m["toks"], m["plen"], m["fed"]
     launches = m["launches"]
@@ -1104,7 +1213,8 @@ def serve_rg_phase(dev, card) -> tuple:
     kinds = get_config(RG_ARCH).layer_kinds()
     n_rglru, n_local = kinds.count("rglru"), kinds.count("local_attn")
     m = serve_main_path(RG_ARCH, dev, {
-        "flash": n_local, "decode": 0, "rglru": n_rglru * (1 + SERVE_NEW)})
+        "flash": n_local, "decode": 0, "rglru": n_rglru * (1 + SERVE_NEW),
+        "mlstm": 0})
     cfg, run, params, reqs = m["cfg"], m["run"], m["params"], m["reqs"]
     tokens, toks, plen, fed = m["tokens"], m["toks"], m["plen"], m["fed"]
     launches = m["launches"]
@@ -1224,6 +1334,170 @@ def serve_rg_phase(dev, card) -> tuple:
     return line, rows
 
 
+def mlstm_phase(dev, card) -> tuple:
+    """The mLSTM kernel vs its plain versions on the card: every case of
+    MLSTM_CASES, then xlstm-350m's prefill shape (from the zero state) and
+    a decode step from the state that prefill leaves; h, C and n against
+    the chunked plain version at the kernel's chunk and against the
+    sequential recurrence from the same state, each within MLSTM_TOL;
+    kernel, plain and sequential times and the bound at both serving
+    shapes.  Returns (the phase's line, the largest error)."""
+    t0 = time.perf_counter()
+    err = {"chunked": 0.0, "sequential": 0.0}
+    cases = []
+
+    def check(case, args):
+        got = xops.mlstm_chunk(*args)
+        torch.cuda.synchronize()
+        for name, want in (("chunked", mlstm_chunk_ref(*args,
+                                                       xkernel.CHUNK)),
+                           ("sequential", mlstm_seq(*args))):
+            for leaf, g, w in zip("hCn", got, want):
+                e, n = over_bound(g, w, torch.float32, MLSTM_TOL)
+                if n or not torch.isfinite(g).all():
+                    raise AssertionError(
+                        f"mlstm kernel != its {name} plain version: {case} "
+                        f"{leaf}: {n} elements over the bound, max err {e}")
+                err[name] = max(err[name], e)
+        cases.append(list(case))
+        return got
+
+    for i, case in enumerate(MLSTM_CASES):
+        check(case, mlstm_inputs(case, 300 + i, dev))
+    pre = mlstm_inputs(XL_PREFILL, 7, dev)
+    _, C, n = check(XL_PREFILL, pre)
+    dec = mlstm_inputs(XL_DECODE, 8, dev, state=(C, n))
+    check(XL_DECODE, dec)
+    times = {}
+    for name, case, args in (("prefill", XL_PREFILL, pre),
+                             ("decode", XL_DECODE, dec)):
+        bnd, by = bound_ms(*mlstm_work(case), torch.float32)
+        times[name] = {
+            "ms": cuda_ms(lambda: xops.mlstm_chunk(*args)),
+            "plain_ms": cuda_ms(lambda: mlstm_chunk_ref(*args,
+                                                        xkernel.CHUNK),
+                                reps=3),
+            "sequential_ms": cuda_ms(lambda: mlstm_seq(*args), reps=1),
+            "bound_ms": bnd, "bound_by": by}
+    return ({"phase": "mlstm_vs_plain", "card": card, "chunk": xkernel.CHUNK,
+             "checks": 6 * len(cases), "cases": cases, "over_bound": 0,
+             "tolerance": MLSTM_TOL,
+             "max_abs_err_vs_chunked": err["chunked"],
+             "max_abs_err_vs_sequential": err["sequential"],
+             "prefill_shape": XL_PREFILL, "decode_shape": XL_DECODE,
+             **{f"{k}_{shape}": v for shape, t in times.items()
+                for k, v in t.items()},
+             "seconds": time.perf_counter() - t0}, max(err.values()))
+
+
+def serve_xlstm_phase(dev, card) -> tuple:
+    """The xLSTM serving path at xlstm-350m's full width and depth:
+    ServeEngine over the same 8 requests as ``serve``; launch counts read
+    around that run; the run teacher-forced through the kernel, through
+    its plain version at the kernel's chunk (the plain route), through
+    the JAX model's own form (the plain version at ``run.mlstm_chunk``,
+    1 at decode) and through the sequential recurrence, on the card; the
+    kernel route held to the larger of the bf16 bound's 2e-2 and the
+    plain routes' largest distance among themselves; every mLSTM
+    call of the kernel run held to its plain version within MLSTM_TOL;
+    the kernel's times at the run's shapes.  Returns (the phase's line,
+    {"mlstm": row} for the kernel table)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kinds = get_config(XL_ARCH).layer_kinds()
+    n_mlstm, n_slstm = kinds.count("mlstm"), kinds.count("slstm")
+    calls = n_mlstm * (1 + SERVE_NEW)
+    m = serve_main_path(XL_ARCH, dev, {"flash": 0, "decode": 0, "rglru": 0,
+                                       "mlstm": calls})
+    cfg, run, params, reqs = m["cfg"], m["run"], m["params"], m["reqs"]
+    tokens, toks, plen, fed = m["tokens"], m["toks"], m["plen"], m["fed"]
+
+    lk, prefill_ms, decode_ms = teacher_forced(cfg, run, params, toks, plen,
+                                               fed)
+    lp, prefill_ms_plain, decode_ms_plain = teacher_forced(
+        cfg, run, params, toks, plen, fed, mlstm=plain_mlstm)
+    # the noise floor of 24 random-weight layers: the largest distance
+    # among the three plain forms of the recurrence — the kernel's chunk
+    # of 64 (the plain route), the JAX model's own chunking (256 at
+    # prefill, 1 at decode) and the sequential recurrence; any two f32
+    # summation orders end 4-11 % apart after 24 such layers
+    lf, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              mlstm=model_mlstm)
+    ls, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              mlstm=seq_mlstm)
+    plain_pairs = {}
+    for name, a, b in (("model_vs_plain", lf, lp), ("seq_vs_plain", ls, lp),
+                       ("model_vs_seq", lf, ls)):
+        _, _, _, plain_pairs[name], flips_floor = route_stats(a, b,
+                                                              cfg.vocab)
+        if flips_floor:
+            raise AssertionError(f"{flips_floor} tokens differ between the "
+                                 f"plain routes ({name}) outside a near-tie")
+    floor = max(plain_pairs.values())
+    agree, n_over, worst, rel = compare_routes(
+        lk, lp, tokens, cfg.vocab,
+        rel_bound=max(TOLS[torch.bfloat16][1], floor))
+    check = MlstmCheck()
+    teacher_forced(cfg, run, params, toks, plen, fed, mlstm=check)
+    if check.over or check.calls != calls:
+        raise AssertionError(f"mlstm calls {check.calls}: {check.over} "
+                             "elements over the bound")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # the kernel's times at the run's shapes: prefill from the zero state,
+    # then decode from the state it leaves (random inputs of those shapes)
+    B, H = SERVE_BATCH, cfg.n_heads
+    dh = 2 * cfg.d_model // H
+    pre = mlstm_inputs((B, plen, H, dh), 10, dev)
+    _, C, n = xops.mlstm_chunk(*pre)
+    dec = mlstm_inputs((B, 1, H, dh), 11, dev, state=(C, n))
+    per_shape = {}
+    for S, args in ((plen, pre), (1, dec)):
+        bnd, by = bound_ms(*mlstm_work((B, S, H, dh)), torch.float32)
+        per_shape[S] = {
+            "ms": cuda_ms(lambda: xops.mlstm_chunk(*args)),
+            "plain_ms": cuda_ms(lambda: mlstm_chunk_ref(*args,
+                                                        xkernel.CHUNK),
+                                reps=3),
+            "bound_ms": bnd, "bound_by": by}
+    mix = {plen: 1 / (1 + SERVE_NEW), 1: SERVE_NEW / (1 + SERVE_NEW)}
+    row = {"launches": m["launches"]["mlstm"],
+           **{key: sum(w * per_shape[s][key] for s, w in mix.items())
+              for key in ("ms", "plain_ms", "bound_ms")},
+           "bound_by": "/".join(sorted({r["bound_by"]
+                                        for r in per_shape.values()})),
+           "library_ms": None}
+    line = {"phase": "serve_xlstm", "card": card, "arch": XL_ARCH,
+            "n_params": m["n_params"], "layers": cfg.n_layers,
+            "mlstm_layers": n_mlstm, "slstm_layers": n_slstm,
+            "heads": H, "head_dim": dh, "chunk": xkernel.CHUNK,
+            "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt) for r in reqs],
+            "padded_len": plen, "new_tokens": SERVE_NEW,
+            "decode_budget": SERVE_BUDGET, "launches": m["launches"],
+            "init_s": m["init_s"], "generate_s": m["generate_s"],
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "plain_prefill_ms": prefill_ms_plain,
+            "plain_decode_ms_per_token": decode_ms_plain,
+            "token_agreement_plain": agree / (SERVE_BATCH * SERVE_NEW),
+            "logits_max_rel_l2": rel, "logits_max_abs_err": worst,
+            "logits_elements_over_elementwise_bound": n_over,
+            "logits_within_2e-2": rel <= TOLS[torch.bfloat16][1],
+            "plain_routes_max_rel_l2": floor,
+            "plain_routes_rel_l2": plain_pairs,
+            "mlstm_calls_checked": check.calls,
+            "mlstm_max_abs_err": check.max_err,
+            "mlstm_over_bound": check.over,
+            "kernel_ms": {"prefill": per_shape[plen]["ms"],
+                          "decode": per_shape[1]["ms"]},
+            "mlstm_bound_ms": {"prefill": per_shape[plen]["bound_ms"],
+                               "decode": per_shape[1]["bound_ms"]},
+            "mlstm_plain_ms": {"prefill": per_shape[plen]["plain_ms"],
+                               "decode": per_shape[1]["plain_ms"]},
+            "peak_mem_gb": peak_gb,
+            "seconds": time.perf_counter() - t_phase}
+    return line, {"mlstm": row}
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and blocks 32 and 96: the kernel
     equals the plain version on every leaf.  Returns the largest error."""
@@ -1261,11 +1535,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. build: the four kernel libraries from src/, one nvcc each, all
+    # 1. build: the five kernel libraries from src/, one nvcc each, all
     #    started together
     t0 = time.perf_counter()
     mods = {"megastep": mkernel, "flash_attention": fkernel,
-            "decode_attention": dkernel, "rglru_scan": rkernel}
+            "decode_attention": dkernel, "rglru_scan": rkernel,
+            "mlstm_chunk": xkernel}
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = {name: ex.submit(mod.build) for name, mod in mods.items()}
         built = {name: f.result() for name, f in futs.items()}
@@ -1299,6 +1574,15 @@ def main() -> int:
         rg[0] if rg else None)
     emit({"phase": "attn_build", "card": card, "seconds": build_s,
           **attn_ptxas})
+    table = nvcc.ptxas_table(built["mlstm_chunk"][1])
+    emit({"phase": "mlstm_build", "card": card, "seconds": build_s,
+          "library": built["mlstm_chunk"][0].name,
+          "ptxas": nvcc.ptxas_lines(built["mlstm_chunk"][1]),
+          "kernels": table,
+          "spill_bytes": sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                             for v in table.values()),
+          "dynamic_smem_bytes_dh512": xkernel.smem_bytes(512),
+          "chunk": xkernel.CHUNK})
 
     # 2. kernel vs plain, one chunk, on the card
     t0 = time.perf_counter()
@@ -1565,8 +1849,17 @@ def main() -> int:
     # 12. the hybrid serving path: full-width recurrentgemma-2b
     serve_rg, rg_rows = serve_rg_phase(dev, card)
     emit(serve_rg)
+    torch.cuda.empty_cache()  # recurrentgemma-2b's weights went with it
 
-    # 13. the kernel table, the card, and the device line (last)
+    # 13. the mLSTM kernel vs its plain versions, on the card
+    line, err_by["mlstm"] = mlstm_phase(dev, card)
+    emit(line)
+
+    # 14. the xLSTM serving path: full-width xlstm-350m
+    serve_xl, xl_rows = serve_xlstm_phase(dev, card)
+    emit(serve_xl)
+
+    # 15. the kernel table, the card, and the device line (last)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -1607,7 +1900,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:40",
          "max_abs_err": max(err_by["rglru"],
                             serve_rg["scan_max_abs_err_vs_associative"]),
-         **rg_rows["rglru"]}]})
+         **rg_rows["rglru"]},
+        {"name": "mlstm_chunk (xlstm-350m, prefill and decode)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:69",
+         "max_abs_err": max(err_by["mlstm"], serve_xl["mlstm_max_abs_err"]),
+         **xl_rows["mlstm"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

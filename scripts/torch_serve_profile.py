@@ -3,8 +3,8 @@
 
     PYTHONPATH=src python scripts/torch_serve_profile.py [--arch NAME]
 
-Builds ``--arch`` (default qwen3-1.7b; recurrentgemma-2b is the other
-serving path of chip_smoke.py) at full width from a seeded
+Builds ``--arch`` (default qwen3-1.7b; recurrentgemma-2b and xlstm-350m
+are chip_smoke.py's other serving paths) at full width from a seeded
 ``torch.Generator`` (random weights), prefills 8 prompts padded to 512
 tokens (decode budget 64), then decodes 8 tokens, all through the kernels,
 under ``torch.profiler``.  Prints one JSON line per part (prefill, decode): the

@@ -1,9 +1,10 @@
-"""The decoder-only LM of the PyTorch port: ``attn``, ``local_attn`` and
-``rglru`` blocks, tail blocks, their decode caches.
+"""The decoder-only LM of the PyTorch port: ``attn``, ``local_attn``,
+``rglru``, ``mlstm`` and ``slstm`` blocks, tail blocks, their decode
+caches.
 
 The JAX package's ``models/lm.py`` for the decoders without experts,
-encoder, modality frontend or xLSTM blocks (qwen3-1.7b, qwen3-4b,
-gemma-7b, qwen1.5-110b, recurrentgemma-2b); :func:`check_ported` raises
+encoder or modality frontend (qwen3-1.7b, qwen3-4b, gemma-7b,
+qwen1.5-110b, recurrentgemma-2b, xlstm-350m); :func:`check_ported` raises
 ``NotImplementedError`` for the rest, naming what is missing.  The
 parameter tree is the JAX package's, leaf for leaf: ``{"embed": {"tok"},
 "final_norm", "tiles": {"b<i>": <block stacked over n_tiles>}[, "tail":
@@ -17,7 +18,9 @@ Modes:
   * ``prefill`` — full-sequence forward, returns the decode cache: K/V of
     the prompt padded with ``run.decode_budget`` zero slots (``attn``), a
     ring of the last ``min(window, S)`` positions with their positions in
-    ``slot_pos`` (``local_attn``), the last h and conv taps (``rglru``).
+    ``slot_pos`` (``local_attn``), the last h and conv taps (``rglru``),
+    the matrix memory C and normaliser n (``mlstm``), the c, n, m, h
+    carry (``slstm``).
   * ``decode``  — one token against the cache.  Every block's new state
     is written into the cache in place (the JAX function returns a new
     cache; here the returned cache is the one passed in, updated), which
@@ -28,8 +31,10 @@ windowed or not, through flash attention; ``attn`` decode through
 flash-decode); CPU tensors take the JAX model's plain attention
 (:func:`layers.attention`).  The ring decode of ``local_attn`` is the JAX
 model's masked attention (:func:`_masked_decode_attn`) on both devices.
-The RG-LRU scan runs through its kernel on the card
-(:mod:`repro_torch.models.recurrent`).
+The RG-LRU scan and the mLSTM run through their kernels on the card;
+the sLSTM is plain PyTorch, a loop over time, on both devices
+(:mod:`repro_torch.models.recurrent`).  The xLSTM blocks have no MLP
+(``ln2``/``mlp``), as in the JAX model.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from .layers import (COMPUTE_DTYPE, NEG_INF, PARAM_DTYPE, apply_mlp,
                      init_attn, init_mlp, rms_norm)
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("attn", "local_attn", "rglru")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -103,9 +108,13 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, *,
         p["attn"] = init_attn(cfg, gen, lead=lead)
     elif kind == "rglru":
         p["rglru"] = rec.init_rglru(cfg, gen, lead=lead)
+    elif kind == "mlstm":
+        p["mlstm"] = rec.init_mlstm(cfg, gen, lead=lead)
+    elif kind == "slstm":
+        p["slstm"] = rec.init_slstm(cfg, gen, lead=lead)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         p["ln2"] = ones()
         p["mlp"] = init_mlp(cfg, gen, lead=lead)
     return p
@@ -142,8 +151,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                       *, lead=(), device) -> Params:
     lead = tuple(lead)
-    if kind == "rglru":
-        return rec.init_rglru_cache(cfg, batch, lead=lead, device=device)
+    if kind in ("rglru", "mlstm", "slstm"):
+        init = getattr(rec, f"init_{kind}_cache")
+        return init(cfg, batch, lead=lead, device=device)
     if kind == "local_attn":
         seq_len = min(cfg.window, seq_len)
     elif kind != "attn":
@@ -264,6 +274,15 @@ def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
         y, st = rec.apply_rglru(cfg, p["rglru"], h,
                                 cache if mode == "decode" else None)
         new_cache = st if mode in ("prefill", "decode") else {}
+    elif kind == "mlstm":
+        y, st = rec.apply_mlstm(cfg, p["mlstm"], h,
+                                cache if mode == "decode" else None,
+                                chunk=run.mlstm_chunk)
+        new_cache = st if mode in ("prefill", "decode") else {}
+    elif kind == "slstm":
+        y, st = rec.apply_slstm(cfg, p["slstm"], h,
+                                cache if mode == "decode" else None)
+        new_cache = st if mode in ("prefill", "decode") else {}
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     x = x + y
@@ -279,8 +298,9 @@ def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
 
 def _write_back(cache: Params, new: Params) -> None:
     """Decode: copy every leaf of a block's new state that is not already
-    the cache's own tensor (the RG-LRU state is new tensors; attention
-    rows were written in place) into the cache."""
+    the cache's own tensor (the recurrent states — RG-LRU, mLSTM, sLSTM —
+    are new tensors; attention rows were written in place) into the
+    cache."""
     for leaf, t in new.items():
         if t is not cache[leaf]:
             cache[leaf].copy_(t)

@@ -1,7 +1,9 @@
-"""Recurrent blocks of the PyTorch port: RG-LRU (RecurrentGemma).
+"""Recurrent blocks of the PyTorch port: RG-LRU (RecurrentGemma) and xLSTM
+(mLSTM, sLSTM).
 
-The RG-LRU half of the JAX package's ``models/recurrent.py``, with its
-names and dtypes: a diagonal linear recurrence h_t = a_t h_{t-1} +
+The JAX package's ``models/recurrent.py``, with its names and dtypes.
+
+RG-LRU: a diagonal linear recurrence h_t = a_t h_{t-1} +
 sqrt(1 - a_t^2) (i_t x_t), a_t = exp(c r_t log sigmoid(Lambda)), after a
 width-4 depthwise causal conv.  Projections and the gates' sigmoids are
 bf16; softplus, exp and the scan are f32 (on CPU tensors rounded as the
@@ -11,7 +13,21 @@ Prefill and decode both run the scan through
 CUDA kernel, prefill from h0 = 0 and decode one step from the cached h
 (the JAX model's prefill runs ``lax.associative_scan`` and its decode
 ``a h0 + b``, which the scan's plain version reproduces bit for bit).
-The mLSTM and sLSTM blocks are not ported.
+
+mLSTM: matrix memory C (dh x dh per head, dh = 2 d / H after the
+up-projection) with an exp input gate and a sigmoid forget gate, in the
+chunkwise-parallel form; prefill from (C, n) = 0 and decode one step
+from the cached state both go through
+:func:`repro_torch.kernels.mlstm_chunk.ops.mlstm_chunk` — on the card the
+CUDA kernel, on the CPU the JAX model's ``mlstm_scan_chunked`` at
+``run.mlstm_chunk`` (prefill) or 1 (decode).
+
+sLSTM: exp-gated scalar memory with normaliser and max-stabiliser, a
+Python loop over time (the JAX model's ``lax.scan``; no kernel computes
+it there either), the products ``x_t W`` inside the step as there.  On
+CPU tensors its f32 products, tanh, sigmoid and fused multiply-adds are
+XLA's (:mod:`repro_torch.numerics`), so the CPU route equals the JAX
+package bit for bit.
 """
 from __future__ import annotations
 
@@ -20,8 +36,10 @@ import torch
 
 from .. import numerics
 from ..configs.base import ModelConfig
+from ..kernels.mlstm_chunk.ops import mlstm_chunk
 from ..kernels.rglru_scan.ops import rglru_scan
-from .layers import PARAM_DTYPE, dense_init, dot, gelu, sigmoid
+from .layers import (PARAM_DTYPE, dense_init, dot, gelu, rms_norm, sigmoid,
+                     silu)
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
@@ -100,3 +118,158 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, *, lead=(),
                              device=device),
             "conv": torch.zeros(lead + (batch, CONV_WIDTH - 1, dr),
                                 dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (chunkwise parallel)
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg: ModelConfig, gen: torch.Generator, *, lead=()) -> dict:
+    d, H, lead = cfg.d_model, cfg.n_heads, tuple(lead)
+    di = 2 * d  # xLSTM up-projection factor 2
+
+    def full(fill):
+        return torch.full(lead + (H,), fill, dtype=PARAM_DTYPE,
+                          device=gen.device)
+
+    return {
+        "w_up": dense_init(gen, lead + (d, di)),
+        "w_gate": dense_init(gen, lead + (d, di)),
+        "wq": dense_init(gen, lead + (di, di)),
+        "wk": dense_init(gen, lead + (di, di)),
+        "wv": dense_init(gen, lead + (di, di)),
+        "wi": dense_init(gen, lead + (di, H), scale=0.02),
+        "wf": dense_init(gen, lead + (di, H), scale=0.02),
+        "bf": full(3.0),  # open forget gates
+        "bi": full(-2.0),
+        "w_down": dense_init(gen, lead + (di, d)),
+    }
+
+
+def mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk: int):
+    """The JAX model's chunkwise mLSTM: q/k/v (B, S, H, dh), log_f/log_i
+    (B, S, H) f32, (C0, n0) the state; returns (h f32, C, n).  The
+    function :func:`repro_torch.kernels.mlstm_chunk.ops.mlstm_chunk`
+    computes (its plain version on CPU tensors, the kernel on the card)."""
+    return mlstm_chunk(q, k, v, log_f, log_i, C0, n0, chunk=chunk)
+
+
+def apply_mlstm(cfg: ModelConfig, p: dict, x, cache=None, chunk: int = 256):
+    """x: (B, S, d) -> (y, cache).  cache: {"C", "n"} for decode (one step
+    from the cached state, chunk 1); the new cache's tensors are new."""
+    B, S, _ = x.shape
+    H, dt = cfg.n_heads, x.dtype
+    up = dot(x, p["w_up"].to(dt))
+    gate = dot(x, p["w_gate"].to(dt))
+    di = up.shape[-1]
+    dh = di // H
+    q = dot(up, p["wq"].to(dt)).reshape(B, S, H, dh)
+    k = dot(up, p["wk"].to(dt)).reshape(B, S, H, dh)
+    v = dot(up, p["wv"].to(dt)).reshape(B, S, H, dh)
+    log_f = -numerics.softplus(-(dot(up, p["wf"].to(dt)).float()
+                                 + p["bf"].float()))
+    log_i = torch.clamp_max(dot(up, p["wi"].to(dt)).float()
+                            + p["bi"].float(), 10.0)
+    if cache is None:
+        C0 = torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                         device=x.device)
+        n0 = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
+    else:
+        C0, n0, chunk = cache["C"], cache["n"], 1
+    h, C, n = mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk)
+    y = h.reshape(B, S, di).to(dt) * silu(gate)
+    return dot(y, p["w_down"].to(dt)), {"C": C, "n": n}
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, *, lead=(),
+                     device=None) -> dict:
+    di, H, lead = 2 * cfg.d_model, cfg.n_heads, tuple(lead)
+    dh = di // H
+    return {"C": torch.zeros(lead + (batch, H, dh, dh), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros(lead + (batch, H, dh), dtype=torch.float32,
+                             device=device)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (sequential)
+# ---------------------------------------------------------------------------
+
+def init_slstm(cfg: ModelConfig, gen: torch.Generator, *, lead=()) -> dict:
+    d, H, lead = cfg.d_model, cfg.n_heads, tuple(lead)
+    dh = d // H
+
+    def const(fill):
+        return torch.full(lead + (d,), fill, dtype=PARAM_DTYPE,
+                          device=gen.device)
+
+    return {
+        "wz": dense_init(gen, lead + (d, d)),
+        "wi": dense_init(gen, lead + (d, d), scale=0.02),
+        "wf": dense_init(gen, lead + (d, d), scale=0.02),
+        "wo": dense_init(gen, lead + (d, d)),
+        # block-diagonal recurrent weights, one (dh, dh) block per head
+        "rz": dense_init(gen, lead + (H, dh, dh)),
+        "ri": dense_init(gen, lead + (H, dh, dh), scale=0.02),
+        "rf": dense_init(gen, lead + (H, dh, dh), scale=0.02),
+        "ro": dense_init(gen, lead + (H, dh, dh)),
+        "bf": const(3.0),
+        "bi": const(0.0),
+        "w_down": dense_init(gen, lead + (d, d)),
+        "norm": const(1.0),
+    }
+
+
+def slstm_step(p, carry, xt, H: int):
+    """One sLSTM step. carry: (c, n, m, h) each (B, d) f32; xt: (B, d)
+    f32."""
+    c, n, m, h = carry
+    B, d = xt.shape
+    hb = h.reshape(B, H, d // H)
+
+    def pre(w, r):
+        return (numerics.einsum("bd,de->be", xt, p[w].float())
+                + numerics.einsum("bhd,hde->bhe", hb,
+                                  p[r].float()).reshape(B, d))
+
+    z = numerics.tanh(pre("wz", "rz"))
+    o = sigmoid(pre("wo", "ro"))
+    li = pre("wi", "ri") + p["bi"].float()
+    # log sigmoid
+    lf = -numerics.softplus(-(pre("wf", "rf") + p["bf"].float()))
+    m_new = torch.maximum(lf + m, li)
+    decay = numerics.exp(lf + m - m_new)
+    gate = numerics.exp(li - m_new)
+    c_new = numerics.muladd(decay, c, gate * z)
+    n_new = numerics.muladd(decay, n, gate)
+    h_new = o * c_new / torch.clamp_min(n_new, 1.0)
+    return c_new, n_new, m_new, h_new
+
+
+def apply_slstm(cfg: ModelConfig, p: dict, x, cache=None):
+    """x: (B, S, d) -> (y, cache {c, n, m, h}); the JAX model's
+    ``lax.scan`` over time as a Python loop."""
+    B, S, d = x.shape
+    if cache is None:
+        zeros = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        carry = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
+    else:
+        carry = (cache["c"], cache["n"], cache["m"], cache["h"])
+    xf = x.float()
+    hs = []
+    for t in range(S):
+        carry = slstm_step(p, carry, xf[:, t], cfg.n_heads)
+        hs.append(carry[3])
+    h = rms_norm(torch.stack(hs, 1), p["norm"], cfg.norm_eps)
+    y = dot(h.to(x.dtype), p["w_down"].to(x.dtype))
+    return y, dict(zip(("c", "n", "m", "h"), carry))
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, *, lead=(),
+                     device=None) -> dict:
+    shape = tuple(lead) + (batch, cfg.d_model)
+    zeros = torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"c": zeros, "n": zeros.clone(),
+            "m": torch.full(shape, -1e30, dtype=torch.float32,
+                            device=device),
+            "h": zeros.clone()}

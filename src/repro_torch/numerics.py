@@ -10,17 +10,24 @@ vectorised CPU ``sqrt`` is not always; it sums a row in windows of 32
 (:func:`mean_sq`).  On CPU tensors the functions here reproduce XLA's
 (the constants and the order of operations are those of XLA's CPU
 lowering), so the port's CPU route equals the JAX package bit for bit.
-One function cannot be reproduced: XLA's ``rsqrt`` refines the CPU's own
-hardware estimate with two Newton steps, so its last bit depends on the
-processor; :func:`rsqrt` rounds correctly, which agrees with it on almost
-every input.  On CUDA tensors every function but :func:`fma` is
-PyTorch's own: the card route is held to bounds, not bits.
+Its ``tanh`` is a rational function evaluated with fused multiply-adds
+(:func:`tanh`); its ``cumsum`` (a ``reduce-window`` that the CPU pipeline
+rewrites) sums in blocks of 16 (:func:`cumsum`); its dots and fused sums
+of products keep their own orders (:func:`einsum`, :func:`sum_product`).
+One function cannot be reproduced: XLA's ``rsqrt`` refines the CPU's
+own hardware estimate with two Newton steps, so its last bit depends on
+the processor; :func:`rsqrt` rounds correctly, which agrees with it on
+almost every input.  On CUDA tensors every function but :func:`fma` and
+:func:`cumsum` is PyTorch's own: the card route is held to bounds, not
+bits.
 
 :func:`fma` is exact on every device: the product in f64 is exact, and
 the f64 sum rounded to odd (TwoSum's error sets the last bit) then to f32
 is the correctly rounded f32 result.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -40,7 +47,13 @@ def fma(a, b, c):
     """round_f32(a * b + c), one rounding.  Any operand may be a float."""
     like = next(x for x in (a, b, c) if torch.is_tensor(x))
     a, b, c = (_tensor(x, like).double() for x in (a, b, c))
-    p = a * b  # exact: 48 significant bits
+    return _add_exact(a * b, c)  # the f64 product is exact: 48 bits
+
+
+def _add_exact(p, c):
+    """round_f32(p + c) for an f64 ``p`` that holds an exact product of
+    two f32 values and f64-held f32 ``c``: the f64 sum rounded to odd
+    (TwoSum's error sets the last bit), then to f32."""
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)  # TwoSum: s + err == p + c exactly
@@ -120,6 +133,34 @@ def _log1p_xla(x):
     return torch.where(x.abs() < _L1P_SMALL, small, big)
 
 
+# XLA's f32 tanh: x itself below 0.0004, +-1 from 20 on, else the rational
+# function of the argument clamped to +-7.9999 (Horner's rule in fused
+# multiply-adds over x^2)
+_TANH_SMALL = _f32("0x3F3A36E2E0000000")
+_TANH_CLAMP = _f32("0x401FFEC880000000")
+_TANH_P = [_f32(h) for h in (
+    "0xBCB3E4B800000000", "0x3D4C266FC0000000", "0xBDD7A6FFE0000000",
+    "0x3E6B800820000000", "0x3EEF286940000000", "0x3F44E1BDA0000000",
+    "0x3F740B3B80000000")]
+_TANH_Q = [_f32(h) for h in (
+    "0x3EB41A7B00000000", "0x3F1F12BAC0000000", "0x3F629540A0000000",
+    "0x3F740B3BA0000000")]
+
+
+def _tanh_xla(x):
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = fma(x2, _TANH_P[0], _TANH_P[1])
+    for c in _TANH_P[2:]:
+        p = fma(x2, p, c)
+    q = fma(x2, _TANH_Q[0], _TANH_Q[1])
+    for c in _TANH_Q[2:]:
+        q = fma(x2, q, c)
+    out = torch.where(x.abs() < _TANH_SMALL, x, (xc * p) / q)
+    return torch.where(x.abs() >= 20.0, torch.copysign(
+        torch.ones_like(x), x), out)
+
+
 def _on_cpu(x) -> bool:
     return x.device.type == "cpu"
 
@@ -146,6 +187,20 @@ def sqrt(x):
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def tanh(x):
+    if not _on_cpu(x):
+        return torch.tanh(x)
+    return _tanh_xla(x.float()).to(x.dtype)
+
+
+def muladd(a, b, c):
+    """``a * b + c`` as the JAX package's CPU backend contracts it: one
+    fused multiply-add (:func:`fma`) on CPU tensors; on the card
+    PyTorch's multiply and add."""
+    like = next(x for x in (a, b, c) if torch.is_tensor(x))
+    return fma(a, b, c) if _on_cpu(like) else a * b + c
+
+
 def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
     out = torch.clamp_min(x, 0.0) + log1p(exp(-x.abs()))
@@ -170,28 +225,129 @@ def _sum_rows(x):
     return acc
 
 
-def mean_sq(x):
-    """mean(x * x) over the last axis of f32 ``x``, keeping the axis.
-
-    On the CPU in XLA's order: a row of at most 32 accumulates
-    ``acc = fma(x_i, x_i, acc)`` from 0; a longer row squares first, pads
-    to a multiple of 32 with zeros (half on each side, the odd one on the
-    right), sums each window left to right and reduces the window sums
-    the same way until at most 32 remain, which it sums left to right.
-    The mean multiplies by 1/N rounded to f32."""
+def _sum_last(x, y):
+    """XLA's CPU order for the sum over the last axis of ``x * y``, the
+    product fused into the reduction: a row of at most 32
+    accumulates ``acc = fma(x_i, y_i, acc)`` from 0; a longer row
+    multiplies first, pads to a multiple of 32 with zeros (half on each
+    side, the odd one on the right), sums each window left to right and
+    reduces the window sums the same way until at most 32 remain, which it
+    sums left to right."""
     n = x.shape[-1]
-    if not _on_cpu(x):
-        return torch.mean(x * x, dim=-1, keepdim=True)
     if n <= _WINDOW:
         acc = torch.zeros_like(x[..., 0])
         for i in range(n):
-            acc = fma(x[..., i], x[..., i], acc)
-    else:
-        x = x * x
-        while x.shape[-1] > _WINDOW:
-            m = -(-x.shape[-1] // _WINDOW)
-            pad = m * _WINDOW - x.shape[-1]
-            x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-            x = _sum_rows(x.reshape(x.shape[:-1] + (m, _WINDOW)))
-        acc = _sum_rows(x)
-    return (acc * float(np.float32(1.0 / n)))[..., None]
+            acc = fma(x[..., i], y[..., i], acc)
+        return acc
+    x = x * y
+    while x.shape[-1] > _WINDOW:
+        m = -(-x.shape[-1] // _WINDOW)
+        pad = m * _WINDOW - x.shape[-1]
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _sum_rows(x.reshape(x.shape[:-1] + (m, _WINDOW)))
+    return _sum_rows(x)
+
+
+def mean_sq(x):
+    """mean(x * x) over the last axis of f32 ``x``, keeping the axis; on
+    the CPU in XLA's order (:func:`_sum_last`).  The mean multiplies by
+    1/N rounded to f32."""
+    n = x.shape[-1]
+    if not _on_cpu(x):
+        return torch.mean(x * x, dim=-1, keepdim=True)
+    return (_sum_last(x, x) * float(np.float32(1.0 / n)))[..., None]
+
+
+def sum_product(x, y, dim: int):
+    """``jnp.sum(x * y, axis=dim)`` (the product broadcast, fused into the
+    reduction): on CPU tensors in XLA's order (:func:`_sum_last`), on the
+    card PyTorch's."""
+    x, y = torch.broadcast_tensors(x, y)
+    if not _on_cpu(x):
+        return (x * y).sum(dim)
+    return _sum_last(x.movedim(dim, -1), y.movedim(dim, -1))
+
+
+_TILE = 8  # rows of a tile of XLA's CPU matrix-vector emitter
+
+
+def einsum(eq: str, a, b):
+    """An f32 ``jnp.einsum`` of two operands over one contracted index.
+
+    On CPU tensors in the order of XLA's CPU dot emitters: one fused
+    multiply-add a term, in the contraction's order, from 0 (Eigen's
+    kernels, and the tiled matrix-vector emitter's rows).  When one
+    operand has no free index (a matrix-vector product) and the matrix's
+    rows leave one row past the last whole tile of 8, that row adds its
+    first 8 terms as rounded products, one by one, and fuses the rest.
+    That is XLA's order wherever each free size is 1 or 17 to 64, the
+    batch is not 1 and the contraction is 8 to 129 long (the mLSTM and
+    sLSTM at their SMOKE width); on the card it is ``torch.einsum``."""
+    if not _on_cpu(a):
+        return torch.einsum(eq, a, b)
+    ins, out = eq.split("->")
+    sa, sb = ins.split(",")
+    (c,) = [x for x in sa if x in sb and x not in out]
+    size = {**dict(zip(sa, a.shape)), **dict(zip(sb, b.shape))}
+    ra, rb = sa.replace(c, ""), sb.replace(c, "")
+    # every term's product, exact in f64 (the contraction index kept)
+    terms = torch.einsum(f"{sa},{sb}->{c}{out}", a.double(), b.double())
+    acc = terms[0].float() + 0.0  # fma(x, y, +0): -0 becomes +0
+    for t in terms[1:]:
+        acc = _add_exact(t, acc.double())
+    rows = [[x for x in ra if x not in rb], [x for x in rb if x not in ra]]
+    if all(math.prod(size[x] for x in r) > 1 for r in rows):
+        return acc
+    # a matrix-vector product: the matrix's rows in tiles of 8
+    (row,) = max(rows, key=lambda r: math.prod(size[x] for x in r)) or [
+        None]
+    m = size[row] if row else 1
+    if m % _TILE != 1:
+        return acc
+    edge = terms[0].float()
+    for i, t in enumerate(terms[1:], 1):
+        edge = edge + t.float() if i < _TILE else _add_exact(t,
+                                                             edge.double())
+    if row is None:
+        return edge
+    k = out.index(row)
+    acc = acc.movedim(k, 0).clone()
+    acc[-1] = edge.movedim(k, 0)[-1]
+    return acc.movedim(0, k)
+
+
+_BLOCK = 16  # XLA's CPU pipeline splits a cumulative sum into blocks of this
+
+
+def _prefix_rows(x):
+    """Inclusive prefix sums of the last axis, left to right from +0."""
+    acc = torch.zeros_like(x[..., 0])
+    out = []
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+        out.append(acc)
+    return torch.stack(out, -1)
+
+
+def _blocked_prefix(x):
+    n = x.shape[-1]
+    if n <= _BLOCK:
+        return _prefix_rows(x)
+    nb = -(-n // _BLOCK)
+    x = torch.nn.functional.pad(x, (0, nb * _BLOCK - n))
+    inner = _prefix_rows(x.reshape(x.shape[:-1] + (nb, _BLOCK)))
+    totals = _blocked_prefix(inner[..., -1])  # (..., nb), inclusive
+    excl = torch.nn.functional.pad(totals[..., :-1], (1, 0))
+    out = inner + excl[..., None]
+    return out.reshape(x.shape)[..., :n]
+
+
+def cumsum(x, dim: int):
+    """``jnp.cumsum`` along ``dim`` in XLA's CPU order, on every device (the
+    mLSTM kernel sums in this order, and its plain version with it): up
+    to 16 elements left to right from +0; longer, the axis padded with
+    zeros to blocks of 16, each block's prefix left to right, and each
+    element plus the sum of the earlier blocks' totals (their inclusive
+    prefix, in the same order, shifted by one)."""
+    x = x.movedim(dim, -1)
+    return _blocked_prefix(x).movedim(-1, dim)

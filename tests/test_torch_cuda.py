@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-megastep, flash attention, flash-decode and the RG-LRU scan, and the LM
-serving paths (attention-only and hybrid).
+megastep, flash attention, flash-decode, the RG-LRU scan and the mLSTM,
+and the LM serving paths (attention-only, hybrid and xLSTM).
 
 These tests need a CUDA card and skip without one (a skip is not a pass).
 They import no JAX, so they run on the machine with the card:
@@ -8,7 +8,8 @@ They import no JAX, so they run on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 ``chip_smoke.py`` holds the kernels to the same standard at the full
-census size and at qwen3-1.7b's and recurrentgemma-2b's full width.
+census size and at qwen3-1.7b's, recurrentgemma-2b's and xlstm-350m's
+full width.
 """
 import importlib.util
 from pathlib import Path
@@ -27,6 +28,9 @@ from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.megastep import ops as mops
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref
+from repro_torch.kernels.mlstm_chunk import kernel as xkernel
+from repro_torch.kernels.mlstm_chunk import ops as xops
+from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref, mlstm_seq
 from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref, rglru_scan_seq
 from repro_torch.models import lm
@@ -335,4 +339,90 @@ def test_serve_engine_runs_the_rglru_kernel(card):
     lp, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
                                     attention=SMOKE.plain_attention,
                                     scan=rglru_scan_seq)
+    SMOKE.compare_routes(lk, lp, tokens, cfg.vocab)
+
+
+# -- the mLSTM (tests/test_kernels.py:165-166's bound) -----------------------
+
+@pytest.mark.parametrize("case", SMOKE.MLSTM_CASES, ids=str)
+def test_mlstm_kernel_matches_plain(card, case):
+    """h, C and n within the bound of the chunked plain version at the
+    kernel's chunk and of the sequential recurrence; one counted launch a
+    call; any S, a nonzero state, S = 1."""
+    args = SMOKE.mlstm_inputs(case, 5, card)
+    n0 = xops.mlstm_chunk.launches
+    got = xops.mlstm_chunk(*args)
+    torch.cuda.synchronize()
+    assert xops.mlstm_chunk.launches == n0 + 1
+    for want in (mlstm_chunk_ref(*args, xkernel.CHUNK), mlstm_seq(*args)):
+        for g, w in zip(got, want):
+            err, n_over = SMOKE.over_bound(g, w, torch.float32,
+                                           SMOKE.MLSTM_TOL)
+            assert n_over == 0, f"max err {err}"
+
+
+def test_mlstm_kernel_reads_strided_qkv(card):
+    """q, k, v as head slices of wider tensors: the kernel reads them
+    through their strides, with the same result as contiguous copies."""
+    B, S, H, dh = 2, 70, 2, 64
+    q, k, v, lf, li, C0, n0 = SMOKE.mlstm_inputs((B, S, 2 * H, dh, True), 6,
+                                                 card)
+    lf, li = lf[:, :, :H].contiguous(), li[:, :, :H].contiguous()
+    C0, n0 = C0[:, :H].contiguous(), n0[:, :H].contiguous()
+    strided = xops.mlstm_chunk(q[:, :, H:], k[:, :, :H], v[:, :, H:], lf, li,
+                               C0, n0)
+    dense = xops.mlstm_chunk(q[:, :, H:].contiguous(),
+                             k[:, :, :H].contiguous(),
+                             v[:, :, H:].contiguous(), lf, li, C0, n0)
+    torch.cuda.synchronize()
+    for a, b in zip(strided, dense):
+        assert torch.equal(a, b)
+
+
+def test_mlstm_kernel_raises_on_what_it_does_not_take(card):
+    q, k, v, lf, li, C0, n0 = SMOKE.mlstm_inputs((2, 8, 2, 64, True), 7,
+                                                 card)
+    with pytest.raises(TypeError, match="bfloat16"):
+        xops.mlstm_chunk(q.float(), k.float(), v.float(), lf, li, C0, n0)
+    with pytest.raises(ValueError, match="on cpu"):
+        xops.mlstm_chunk(q, k, v, lf, li, C0.cpu(), n0)
+    with pytest.raises(ValueError, match="contiguous"):
+        xops.mlstm_chunk(q, k, v, lf.transpose(0, 1).contiguous().transpose(
+            0, 1), li, C0, n0)
+    with pytest.raises(ValueError, match="aligned"):
+        xops.mlstm_chunk(q[..., 4:36], k[..., 4:36], v[..., 4:36], lf, li,
+                         C0[..., :32, :32].contiguous(),
+                         n0[..., :32].contiguous())
+    with pytest.raises(ValueError, match="multiples of 32"):
+        xops.mlstm_chunk(q[..., :48], k[..., :48], v[..., :48], lf, li,
+                         C0[..., :48, :48].contiguous(),
+                         n0[..., :48].contiguous())
+
+
+def test_serve_engine_runs_the_mlstm_kernel(card):
+    """xlstm-350m SMOKE on the card (4 layers: mLSTM x 3, sLSTM; 4 heads of
+    32): every mLSTM layer one launch a prefill and a token; the engine's
+    tokens are the argmax of its teacher-forced kernel-route logits; every
+    mLSTM call of that run within its plain version's bound; the kernel
+    route within the bf16 bound of the plain route in norm."""
+    cfg = get_smoke("xlstm-350m")
+    run = RunConfig(remat_policy="none", decode_budget=6)
+    params = lm.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(cfg, run, params, max_batch=2)
+    prompts = [np.arange(20, dtype=np.int32), np.arange(5, dtype=np.int32)]
+    xops.mlstm_chunk.launches = rops.rglru_scan.launches = 0
+    fops.flash_attention.launches = dops.decode_attention.launches = 0
+    outs = eng.generate([Request(p, max_new_tokens=6) for p in prompts])
+    assert xops.mlstm_chunk.launches == 3 * 7
+    assert fops.flash_attention.launches == dops.decode_attention.launches \
+        == rops.rglru_scan.launches == 0
+    tokens = np.stack([o.tokens for o in outs])
+    toks, plen = eng._pad_batch([Request(p) for p in prompts])
+    fed = torch.from_numpy(tokens.astype(np.int64)).to(card)
+    check = SMOKE.MlstmCheck()
+    lk, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                    mlstm=check)
+    assert check.calls == 3 * 7 and check.over == 0
+    lp, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                    mlstm=SMOKE.plain_mlstm)
     SMOKE.compare_routes(lk, lp, tokens, cfg.vocab)

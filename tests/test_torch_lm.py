@@ -283,8 +283,6 @@ def test_configs_equal_jax():
 
 
 NOT_PORTED = {
-    "mlstm": dict(block_pattern=("mlstm",)),
-    "slstm": dict(block_pattern=("attn", "slstm")),
     "moe": dict(moe=jax_configs.MoeConfig(n_experts=4, top_k=2,
                                           d_ff_expert=32)),
     "encdec": dict(kind="encdec", enc_layers=2),
@@ -306,7 +304,7 @@ def test_not_ported_features_raise(model, name):
 
 def test_every_config_outside_the_slice_raises():
     ported = {"qwen3-1.7b", "qwen3-4b", "gemma-7b", "qwen1.5-110b",
-              "recurrentgemma-2b"}
+              "recurrentgemma-2b", "xlstm-350m"}
     for arch in configs.ARCHS:
         cfg = configs.get_smoke(arch)
         if arch in ported:
