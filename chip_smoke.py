@@ -39,9 +39,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. ``build``: the five kernel libraries from ``src/`` (one nvcc each,
    sm_90a, all started together), megastep's and rglru_scan's ptxas
-   reports; ``attn_build``: the attention libraries' ptxas summary (the
-   instances both serving paths launch); ``mlstm_build``: the mLSTM
-   kernel's registers, spills and dynamic shared memory;
+   reports; ``attn_build``: the attention libraries' ptxas summary, and
+   for the instances both serving paths launch (flash attention's bf16
+   tensor-core kernel at head dims 128 and 256, flash-decode's bf16 split
+   kernel at head dim 128) their registers, spills, shared memory and the
+   count of ``HGMMA`` instructions in their SASS (``cuobjdump -sass``);
+   ``mlstm_build``: the mLSTM kernel's registers, spills and dynamic
+   shared memory;
 2. ``kernel_vs_plain``: megastep vs its plain PyTorch version on the card,
    one chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit
    for bit — from the emulation-off census and seeded random states, from
@@ -61,16 +65,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 8. ``flash_vs_plain``: flash attention vs its plain version, every case of
    ``tests/test_kernels.py`` plus ragged lengths, dead window rows, head
    dims 16-256, a 2048 window that binds (S 4096, 10:1 heads of 256) and
-   both serving paths' prefill shapes, f32 (2e-5) and bf16 (2e-2), every
-   tile shape;
+   both serving paths' prefill shapes: bf16 through the tensor-core kernel
+   (2e-2), f32 through the SIMT kernel (2e-5);
 9. ``decode_vs_plain``: flash-decode likewise, kv_len on and off the tile,
-   0 and past the cache, and the qwen3-1.7b decode shape;
+   0 and past the cache, the qwen3-1.7b decode shape, and cases that force
+   one split and many (kv_len 0 and past Skv among them); every case called
+   twice, the two outputs equal bit for bit;
 10. ``serve``: the serving path; its tokens; teacher-forced logits of the
     kernel route against the kernels' plain versions on the card (relative
     L2 within 2e-2, tokens equal outside near-ties) and every attention
     call of that run against its plain version on the same inputs
     (elementwise bf16 bound); prefill ms, decode ms per token, per-kernel
-    ms beside bound, plain and ``scaled_dot_product_attention`` times;
+    ms beside bound, plain and ``scaled_dot_product_attention`` times (the
+    attention kernels' and SDPA's as device time, from a CUDA graph of the
+    calls: eager calls of these small kernels time the host's launch
+    path; the eager times are in the phase line too);
 11. ``rglru_vs_plain``: the RG-LRU scan kernel vs its plain versions,
     ``tests/test_kernels.py``'s cases, odd lengths and widths, h0 zero and
     not, recurrentgemma-2b's prefill and decode shapes: bit for bit
@@ -271,11 +280,23 @@ SERVE_ARCH = "qwen3-1.7b"
 SERVE_BATCH, SERVE_NEW, SERVE_BUDGET = 8, 32, 64
 SERVE_PROMPT_LENS = (64, 512)  # shortest and longest prompt
 RG_ARCH = "recurrentgemma-2b"
-# the kernel instance each main path launches (bf16, the default tile; head
-# dim 128 for qwen3-1.7b, 256 for recurrentgemma-2b), by its mangled name
-MAIN_INSTANCE = {"flash_attention": "__nv_bfloat16Li128ELi64ELi32E",
-                 "decode_attention": "__nv_bfloat16Li128E"}
-RG_INSTANCE = "__nv_bfloat16Li256ELi64ELi32E"
+# (B, Skv, Hq, Hkv, hd, kv_len) that force the decode split: one split
+# (B * Hkv covers the card twice; kv_len under 2 * 64), many splits (a long
+# cache over few rows), kv_len 0 and past Skv under many splits
+DECODE_SPLIT_CASES = (
+    (33, 512, 16, 8, 128, 500),     # B * Hkv 264: one split
+    (2, 256, 8, 2, 64, 100),        # 100 positions: one split
+    (1, 4096, 8, 2, 128, 4000),     # 62 splits
+    (1, 2048, 4, 1, 256, 0),        # every position masked, 32 splits
+    (2, 1024, 8, 4, 64, 5000),      # past Skv, 16 splits
+    (1, 999, 16, 1, 16, 998),       # G 16, 15 splits
+)
+# the kernel instance each main path launches (bf16; head dim 128 for
+# qwen3-1.7b, 256 for recurrentgemma-2b), by its mangled name
+MAIN_INSTANCE = {"flash_attention": "flash_tc_kernelILi128ELi2EE",
+                 "decode_attention": "decode_split_kernelI13__nv_bfloat16"
+                                     "Li128ELi2EE"}
+RG_INSTANCE = "flash_tc_kernelILi256ELi1EE"
 # the RG-LRU scan: tests/test_kernels.py:131's bound, its cases
 # (tests/test_kernels.py:118-122), odd lengths and widths, and the
 # recurrentgemma-2b serving shapes (B, S, d_rnn): prefill and decode
@@ -419,6 +440,28 @@ def bound_ms(nbytes: int, ops: int, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Mean device ms of ``fn()``: ``reps`` calls captured in a CUDA graph,
+    the graph replayed ``rounds`` times between CUDA events (no host
+    launch path in the time)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(rounds):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (rounds * reps)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -879,55 +922,66 @@ def code_words_of(pps) -> int:
 
 def flash_phase(dev, card) -> tuple:
     """Flash attention vs its plain version on the card: every case of
-    FLASH_CASES and both serving paths' prefill shapes, f32 and bf16, every
-    tile shape.  Returns (the phase's line, the largest error)."""
+    FLASH_CASES and both serving paths' prefill shapes, bf16 (the
+    tensor-core kernel) and f32 (the SIMT kernel).  Returns (the phase's
+    line, the largest error)."""
     t0 = time.perf_counter()
     err, n_checks = 0.0, 0
     for i, case in enumerate(FLASH_CASES + (QWEN_PREFILL, RG_PREFILL)):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_inputs(case, dtype, i, dev)
             want = fops.flash_attention_plain(q, k, v, causal=case[6],
                                               window=case[7])
-            for bq, bk in fkernel.TILES:
-                got = fops.flash_attention(q, k, v, causal=case[6],
-                                           window=case[7], bq=bq, bk=bk)
-                torch.cuda.synchronize()
-                e, n_over = over_bound(got, want, dtype)
-                if n_over or not torch.isfinite(got).all():
-                    raise AssertionError(
-                        f"flash kernel != plain: {case} {dtype} tile "
-                        f"{(bq, bk)}: {n_over} elements over the bound, "
-                        f"max err {e}")
-                err = max(err, e)
-                n_checks += 1
+            got = fops.flash_attention(q, k, v, causal=case[6],
+                                       window=case[7])
+            torch.cuda.synchronize()
+            e, n_over = over_bound(got, want, dtype)
+            if n_over or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"flash kernel != plain: {case} {dtype}: {n_over} "
+                    f"elements over the bound, max err {e}")
+            err = max(err, e)
+            n_checks += 1
     return ({"phase": "flash_vs_plain", "card": card, "checks": n_checks,
-             "cases": len(FLASH_CASES) + 2, "tiles": fkernel.TILES,
+             "cases": len(FLASH_CASES) + 2,
+             "kernels": {"bfloat16": "flash_tc_kernel (wgmma, TMA)",
+                         "float32": "flash_kernel (SIMT)"},
              "over_bound": 0, "max_abs_err": err,
              "seconds": time.perf_counter() - t0}, err)
 
 
 def decode_phase(dev, card) -> tuple:
     """Flash-decode vs its plain version on the card: every case of
-    DECODE_CASES and the qwen3-1.7b decode shape, f32 and bf16.  Returns
-    (the phase's line, the largest error)."""
+    DECODE_CASES, the qwen3-1.7b decode shape and DECODE_SPLIT_CASES, f32
+    and bf16; each case called twice, the outputs equal bit for bit.
+    Returns (the phase's line, the largest error)."""
     t0 = time.perf_counter()
-    err, n_checks = 0.0, 0
-    for i, case in enumerate(DECODE_CASES + (QWEN_DECODE,)):
+    err, n_checks, splits = 0.0, 0, {}
+    cases = DECODE_CASES + (QWEN_DECODE,) + DECODE_SPLIT_CASES
+    for i, case in enumerate(cases):
+        B, Skv, Hq, Hkv, hd, kv_len = case
+        splits[str(case)] = dops.split_count(Skv, kv_len, B * Hkv,
+                                             dops.sm_count(dev.index or 0))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = decode_inputs(case, dtype, 100 + i, dev)
-            want = dops.decode_attention_plain(q, k, v, case[5])
-            got = dops.decode_attention(q, k, v, case[5])
+            want = dops.decode_attention_plain(q, k, v, kv_len)
+            got = dops.decode_attention(q, k, v, kv_len)
+            again = dops.decode_attention(q, k, v, kv_len)
             torch.cuda.synchronize()
             e, n_over = over_bound(got, want, dtype)
             if n_over or not torch.isfinite(got).all():
                 raise AssertionError(
                     f"decode kernel != plain: {case} {dtype}: {n_over} "
                     f"elements over the bound, max err {e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"decode kernel: two calls differ: "
+                                     f"{case} {dtype}")
             err = max(err, e)
             n_checks += 1
     return ({"phase": "decode_vs_plain", "card": card, "checks": n_checks,
-             "cases": len(DECODE_CASES) + 1, "over_bound": 0,
-             "max_abs_err": err, "seconds": time.perf_counter() - t0}, err)
+             "cases": len(cases), "splits": splits, "over_bound": 0,
+             "two_calls_bit_equal": True, "max_abs_err": err,
+             "seconds": time.perf_counter() - t0}, err)
 
 
 class AttentionCheck:
@@ -1104,14 +1158,15 @@ def serve_phase(dev, card) -> tuple:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes, ops = flash_work(case, torch.bfloat16)
     bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
+    flash = lambda: fops.flash_attention(q, k, v, causal=True)  # noqa: E731
     rows["flash"] = {
-        "launches": launches["flash"],
-        "ms": cuda_ms(lambda: fops.flash_attention(q, k, v, causal=True)),
+        "launches": launches["flash"], "ms": device_ms(flash),
         "plain_ms": cuda_ms(lambda: fops.flash_attention_plain(
             q, k, v, causal=True), reps=5),
         "bound_ms": bnd, "bound_by": by,
-        "library_ms": cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
-                                           enable_gqa=True))}
+        "library_ms": device_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True))}
+    eager = {"flash": cuda_ms(flash), "decode": 0.0}
     Skv = plen + SERVE_BUDGET
     qd, kc, vc = decode_inputs((B, Skv, Hq, Hkv, hd, 0), torch.bfloat16, 8,
                                dev)
@@ -1122,12 +1177,13 @@ def serve_phase(dev, card) -> tuple:
         kv_len = plen + t + 1
         kl, vl = (x[:, :kv_len].transpose(1, 2).contiguous()
                   for x in (kc, vc))
-        ms["ms"] += cuda_ms(lambda: dops.decode_attention(qd, kc, vc, kv_len),
-                            reps=10)
+        decode = lambda: dops.decode_attention(qd, kc, vc, kv_len)  # noqa
+        ms["ms"] += device_ms(decode, reps=10)
+        eager["decode"] += cuda_ms(decode, reps=10) / SERVE_NEW
         ms["plain_ms"] += cuda_ms(lambda: dops.decode_attention_plain(
             qd, kc, vc, kv_len), reps=3)
-        ms["library_ms"] += cuda_ms(lambda: sdpa(qds, kl, vl,
-                                                 enable_gqa=True), reps=10)
+        ms["library_ms"] += device_ms(lambda: sdpa(qds, kl, vl,
+                                                   enable_gqa=True), reps=10)
         nbytes, ops = decode_work((B, Skv, Hq, Hkv, hd, kv_len),
                                   torch.bfloat16)
         bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
@@ -1153,6 +1209,8 @@ def serve_phase(dev, card) -> tuple:
             "attention_max_abs_err": check.max_err,
             "attention_over_bound": check.over,
             "kernel_ms": {k_: r["ms"] for k_, r in rows.items()},
+            "kernel_eager_ms": eager,
+            "library_ms": {k_: r["library_ms"] for k_, r in rows.items()},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "seconds": time.perf_counter() - t_phase}
     return line, rows
@@ -1270,16 +1328,17 @@ def serve_rg_phase(dev, card) -> tuple:
     qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bnd, by = bound_ms(*flash_work(case, torch.bfloat16), torch.bfloat16)
+    flash = lambda: fops.flash_attention(  # noqa: E731
+        q, k, v, causal=True, window=cfg.window)
     rows["flash"] = {
-        "launches": launches["flash"],
-        "ms": cuda_ms(lambda: fops.flash_attention(q, k, v, causal=True,
-                                                   window=cfg.window)),
+        "launches": launches["flash"], "ms": device_ms(flash),
         "plain_ms": cuda_ms(lambda: fops.flash_attention_plain(
             q, k, v, causal=True, window=cfg.window), reps=5),
         "bound_ms": bnd, "bound_by": by,
         # plen <= window: causal attention is the same function
-        "library_ms": cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
-                                           enable_gqa=True))}
+        "library_ms": device_ms(lambda: sdpa(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True))}
+    flash_eager_ms = cuda_ms(flash)
     # the scan: per launch, averaged over the run's launches (one prefill
     # shape and SERVE_NEW decode steps per RG-LRU layer)
     per_shape = {}
@@ -1325,6 +1384,8 @@ def serve_rg_phase(dev, card) -> tuple:
             "kernel_ms": {"flash": rows["flash"]["ms"],
                           "rglru_prefill": per_shape[plen]["ms"],
                           "rglru_decode": per_shape[1]["ms"]},
+            "flash_eager_ms": flash_eager_ms,
+            "flash_library_ms": rows["flash"]["library_ms"],
             "rglru_bound_ms": {"prefill": per_shape[plen]["bound_ms"],
                                "decode": per_shape[1]["bound_ms"]},
             "rglru_plain_ms": {"prefill": per_shape[plen]["plain_ms"],
@@ -1557,21 +1618,38 @@ def main() -> int:
     attn_ptxas = {}
     for name in ("flash_attention", "decode_attention"):
         table = nvcc.ptxas_table(built[name][1])
-        main = [v for k, v in table.items() if MAIN_INSTANCE[name] in k]
         attn_ptxas[name] = {
             "library": built[name][0].name, "instances": len(table),
             "max_registers": max((v.get("registers", 0)
                                   for v in table.values()), default=None),
-            "max_stack": max((v.get("stack", 0) for v in table.values()),
-                             default=None),
             "spill_bytes": sum(v.get("spill_stores", 0)
                                + v.get("spill_loads", 0)
-                               for v in table.values()),
-            "main_path_instance": main[0] if main else None}
-    rg = [v for k, v in nvcc.ptxas_table(built["flash_attention"][1]).items()
-          if RG_INSTANCE in k]
-    attn_ptxas["flash_attention"]["recurrentgemma_instance"] = (
-        rg[0] if rg else None)
+                               for v in table.values())}
+    # the main paths' instances: ptxas's registers and spills, the
+    # runtime's shared memory and threads, HGMMA instructions in the SASS
+    hgmma = nvcc.sass_counts(built["flash_attention"][0], "HGMMA")
+    table = nvcc.ptxas_table(built["flash_attention"][1])
+    for key, inst, hd in (("main_path_instance",
+                           MAIN_INSTANCE["flash_attention"], 128),
+                          ("recurrentgemma_instance", RG_INSTANCE, 256)):
+        # ptxas's report is empty when the library was built before
+        ptxas = [v for k_, v in table.items() if inst in k_]
+        sass = [(k_, n) for k_, n in hgmma.items() if inst in k_]
+        if len(sass) != 1:
+            raise AssertionError(f"flash instance {inst}: {len(sass)} in "
+                                 "the library's SASS")
+        row = {"kernel": sass[0][0], "hgmma": sass[0][1],
+               "ptxas": ptxas[0] if ptxas else None, **fkernel.tc_info(hd)}
+        if not row["hgmma"] or row["local_bytes"] or (ptxas and (
+                ptxas[0]["spill_stores"] or ptxas[0]["spill_loads"])):
+            raise AssertionError(f"flash instance {inst}: {row}: not "
+                                 "tensor-core code without spills")
+        attn_ptxas["flash_attention"][key] = row
+    table = nvcc.ptxas_table(built["decode_attention"][1])
+    rows = [(k_, v) for k_, v in table.items()
+            if MAIN_INSTANCE["decode_attention"] in k_]
+    attn_ptxas["decode_attention"]["main_path_instance"] = (
+        {"kernel": rows[0][0], **rows[0][1]} if rows else None)
     emit({"phase": "attn_build", "card": card, "seconds": build_s,
           **attn_ptxas})
     table = nvcc.ptxas_table(built["mlstm_chunk"][1])

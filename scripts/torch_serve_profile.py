@@ -10,7 +10,10 @@ tokens (decode budget 64), then decodes 8 tokens, all through the kernels,
 under ``torch.profiler``.  Prints one JSON line per part (prefill, decode): the
 host wall time (synchronised), the device time summed over the kernels
 the profiler saw (device-side events only), the device idle share (1 -
-device / wall), and the top kernels by device time; then the card line.
+device / wall), the top kernels by device time and the attention kernels'
+rows by name (``flash_tc_kernel`` / ``flash_kernel``,
+``decode_split_kernel`` and ``decode_combine_kernel``); then the card
+line.
 Needs a card.
 """
 from __future__ import annotations
@@ -31,6 +34,8 @@ from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 BATCH, PROMPT_LEN, DECODE_STEPS, TOP = 8, 512, 8, 12
+ATTENTION_KERNELS = ("flash_tc_kernel", "flash_kernel", "decode_split_kernel",
+                     "decode_combine_kernel")
 
 
 def device_us(evt) -> float:
@@ -61,7 +66,10 @@ def profiled(fn, label: str, top: int) -> dict:
     return {"part": label, "wall_ms": wall_ms, "device_ms": dev_ms,
             "device_idle_share": (1 - dev_ms / wall_ms) if wall_ms else None,
             "top": [{"name": n[:90], "ms": ms, "calls": c}
-                    for n, ms, c in rows[:top]]}
+                    for n, ms, c in rows[:top]],
+            "attention": [{"name": n[:90], "ms": ms, "calls": c}
+                          for n, ms, c in rows
+                          if any(k in n for k in ATTENTION_KERNELS)]}
 
 
 def main() -> int:

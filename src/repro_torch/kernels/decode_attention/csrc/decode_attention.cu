@@ -1,5 +1,5 @@
-// Flash-decode: one query token's grouped query rows against a KV cache —
-// the Hopper counterpart of the TPU kernel
+// Flash-decode: one query token's grouped query rows against a KV cache,
+// split over the cache — the Hopper counterpart of the TPU kernel
 // src/repro/kernels/decode_attention/kernel.py::decode_attention_3d
 // (Pallas).
 //
@@ -12,27 +12,34 @@
 // not be a multiple of any tile: positions past min(kv_len, Skv) are not
 // visited (for kv_len >= 1 they add exp(-1e30 - m) = 0 in the TPU kernel;
 // for kv_len <= 0 every position is masked and, as there, the result is
-// the uniform average over all Skv positions).
+// the uniform average over all Skv positions: every split then covers
+// its share of all Skv positions, each with m = -1e30).
 //
-// Design: one block of 128 threads per bh, walking the cache in tiles of
-// 128 positions, one position per thread.  A thread reads its position's
-// key row with 16-byte loads (the wrapper guarantees 16-byte aligned rows)
-// and dots it with the G scaled query rows held in shared memory; the
-// tile's max and sum for each g are block reductions (warp shuffles, then
-// shared memory), every thread keeping the running max and denominator.
-// The tile's V rows are staged in shared memory (f32) at the start of the
-// tile, 16 bytes a thread with neighbouring threads on neighbouring
-// bytes, so their loads overlap the key loads.  P goes to shared memory
-// and each thread accumulates P V for its own head dims (d = tid % hd,
-// and d + 128 for hd 256), key groups splitting the tile when hd < 128
-// and summed once at the end.
+// What bounds it on this card: bytes.  The live cache, K and V, is read
+// once (2 * kv_len * hd * elt bytes per bh) for 4 * G * kv_len * hd FLOPs:
+// ~2 FLOPs a byte for G = 2 in bf16, far under the ridge, so tensor cores
+// do not help; what helps is keeping the card full of bytes in flight.
 //
-// What bounds it on this card: bytes.  The whole live cache, K and V, is
-// read once (2 * kv_len * hd * elt bytes per bh) for 4 * G * kv_len * hd
-// FLOPs: ~2 FLOPs a byte for G = 2 in bf16, far under the ridge.  The
-// design reads each byte once; what it does not do yet is spread one bh
-// over several SMs (split-KV with a combine pass): with B * Hkv = 64
-// blocks at the qwen3-1.7b decode shape, half the card's 132 SMs sit idle.
+// Design: grid (B * Hkv, nsplit).  The wrapper picks nsplit
+// (ops.split_count) so that B * Hkv * nsplit covers the card's SMs twice
+// where each split still holds at least 64 positions; split s of bh takes
+// positions [s * n / nsplit, (s + 1) * n / nsplit) of the n it visits.  A
+// block is 4 warps that work alone until the end: warp w takes the
+// split's tiles of PW rows (8, or 16 at 32-byte rows) w, w + 4, ..., and
+// streams each tile's K and V rows into its own ring of shared memory
+// (2 or 4 stages) with 16-byte cp.async copies, the next stages in flight
+// while it computes on one.  In a tile, the lanes of a warp split a row's
+// 16-byte chunks (16 lanes for hd 128 in bf16, so two rows at once); the
+// dot with each scaled query row (held in shared memory, f32) is reduced
+// across those lanes by shuffles, and each lane group keeps its own
+// online softmax (max, denominator) and its chunks of P V for every g,
+// in f32 (with G <= 2 the lane's chunks of the query rows stay in
+// registers).  At the end the lane groups, then the 4 warps (through the
+// ring's shared memory), merge their states in a fixed order.  With one
+// split the block writes the output; otherwise it writes its partial
+// (o, m, l) in f32 to scratch and a second kernel, launched by the same
+// call, merges the splits in split order.  No atomics: two calls give the
+// same bits.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +59,7 @@ struct DecodeArgs {
     float scale;
 };
 
-constexpr int THREADS = 128;  // = positions per tile
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAXG = 16;
 
@@ -73,15 +80,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 template <typename T> struct Vec;
 template <> struct Vec<float> {
     static constexpr int N = 4;
-    __device__ __forceinline__ static void load(const float* p, float* out) {
+    __device__ __forceinline__ static void load(const void* p, float* out) {
         const float4 x = *reinterpret_cast<const float4*>(p);
         out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
     }
 };
 template <> struct Vec<__nv_bfloat16> {
     static constexpr int N = 8;
-    __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                                float* out) {
+    __device__ __forceinline__ static void load(const void* p, float* out) {
         const uint4 x = *reinterpret_cast<const uint4*>(p);
         const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
@@ -93,34 +99,55 @@ template <> struct Vec<__nv_bfloat16> {
     }
 };
 
-template <int HD>
-constexpr size_t decode_smem_bytes() {
-    // vs [THREADS][HD], qs [MAXG][HD], ps [MAXG][THREADS] (reused for the
-    // key-group sums), red [2][WARPS][MAXG]
-    return sizeof(float) * ((size_t)THREADS * HD + (size_t)MAXG * HD
-                            + (size_t)MAXG * THREADS + 2 * WARPS * MAXG);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
-    constexpr int CPT = HD >= THREADS ? HD / THREADS : 1;  // dims a thread owns
-    constexpr int KG = HD >= THREADS ? 1 : THREADS / HD;   // key groups in P V
-    constexpr int VN = Vec<T>::N;
+template <typename T, int HD, int GCAP>
+struct Dc {
+    static constexpr int VEC = Vec<T>::N;          // elements in 16 bytes
+    static constexpr int NCH = HD / VEC;           // 16-byte chunks a row
+    static constexpr int LW = NCH < 32 ? NCH : 32; // lanes on one row
+    static constexpr int CPL = NCH / LW;           // chunks a lane owns
+    static constexpr int PWT = 32 / LW;            // rows a warp takes at once
+    static constexpr int PW = PWT > 8 ? PWT : 8;   // rows of a warp's tile
+    static constexpr int ROW = HD * (int)sizeof(T);
+    static constexpr int STAGE = 2 * PW * ROW;     // K then V of a tile
+    static constexpr int STAGES = STAGE >= 8192 ? 2 : 4;
+    static constexpr size_t RING = (size_t)WARPS * STAGES * STAGE;
+    // the warps' merged states: [WARPS][GCAP][HD + 2] f32 (o, m, l)
+    static constexpr size_t MERGE = (size_t)WARPS * GCAP * (HD + 2) * 4;
+    static constexpr size_t SHARED = RING > MERGE ? RING : MERGE;
+    static constexpr size_t SMEM = SHARED + (size_t)GCAP * HD * 4;
+};
+
+template <typename T, int HD, int GCAP>
+__global__ void __launch_bounds__(THREADS)
+decode_split_kernel(DecodeArgs a, float* part, int nsplit) {
+    using D = Dc<T, HD, GCAP>;
+    constexpr int VEC = D::VEC, LW = D::LW, CPL = D::CPL, PWT = D::PWT;
+    constexpr int PW = D::PW, ROW = D::ROW, STAGES = D::STAGES;
+    constexpr int NA = CPL * VEC;  // head dims a lane accumulates
     extern __shared__ float4 smem4[];  // 16-byte aligned
-    float* vs = reinterpret_cast<float*>(smem4);
-    float* qs = vs + THREADS * HD;
-    float* ps = qs + MAXG * HD;
-    float* red_max = ps + MAXG * THREADS;
-    float* red_sum = red_max + WARPS * MAXG;
+    uint8_t* ring = reinterpret_cast<uint8_t*>(smem4);
+    float* qs = reinterpret_cast<float*>(ring + D::SHARED);
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int G = (int)a.G;
-    const int64_t bh = blockIdx.x;
+    const int64_t bh = blockIdx.x, split = blockIdx.y;
     const int64_t b = bh / a.Hkv, h = bh % a.Hkv;
     const T* q = (const T*)a.q + bh * a.q_sbh;
     const T* k = (const T*)a.k + b * a.k_sb + h * a.k_sh;
     const T* v = (const T*)a.v + b * a.v_sb + h * a.v_sh;
-    T* o = (T*)a.o + bh * a.o_sbh;
 
     for (int idx = tid; idx < G * HD; idx += THREADS) {
         const int g = idx / HD, d = idx % HD;
@@ -128,170 +155,267 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs a) {
     }
     __syncthreads();
 
-    const int d0 = tid % HD, kg = tid / HD;  // P V: dims d0 + c*THREADS
-    float m_run[MAXG], l_run[MAXG], acc[MAXG][CPT];
+    const bool all_masked = a.kv_len < 1;
+    const int64_t n_end = all_masked ? a.Skv : min(a.kv_len, a.Skv);
+    const int64_t n0 = split * n_end / nsplit;
+    const int64_t n1 = (split + 1) * n_end / nsplit;
+    const int64_t n_tiles = (n1 - n0 + PW - 1) / PW;
+    const int my_tiles = n_tiles > warp
+        ? (int)((n_tiles - warp + WARPS - 1) / WARPS) : 0;
+    uint8_t* my_ring = ring + (size_t)warp * STAGES * D::STAGE;
+
+    // the j-th tile of this warp: K rows, then V rows, into stage j % STAGES
+    auto issue = [&](int j) {
+        const int64_t r0 = n0 + (int64_t)(warp + j * WARPS) * PW;
+        const int rows = (int)min((int64_t)PW, n1 - r0);
+        uint8_t* kst = my_ring + (j % STAGES) * D::STAGE;
+        uint8_t* vst = kst + PW * ROW;
+        for (int idx = lane; idx < rows * D::NCH; idx += 32) {
+            const int r = idx / D::NCH, c = idx % D::NCH;
+            cp_async16(kst + r * ROW + c * 16, k + (r0 + r) * a.k_ss + c * VEC);
+            cp_async16(vst + r * ROW + c * 16, v + (r0 + r) * a.v_ss + c * VEC);
+        }
+    };
+
+    float m[GCAP], l[GCAP], acc[GCAP][NA];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-        m_run[g] = NEG_INF;
-        l_run[g] = 0.f;
+    for (int g = 0; g < GCAP; ++g) {
+        m[g] = NEG_INF;
+        l[g] = 0.f;
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[g][c] = 0.f;
+        for (int e = 0; e < NA; ++e) acc[g][e] = 0.f;
     }
 
-    const int64_t n_end = a.kv_len >= 1 ? min(a.kv_len, a.Skv) : a.Skv;
-    for (int64_t k0 = 0; k0 < n_end; k0 += THREADS) {
-        const int64_t n = k0 + tid;
-        const int tile = (int)min((int64_t)THREADS, n_end - k0);
-        // the tile's V rows to shared memory, 16 bytes a thread, coalesced
-        for (int idx = tid; idx < tile * (HD / VN); idx += THREADS) {
-            const int nn = idx / (HD / VN), dv = (idx % (HD / VN)) * VN;
-            float x[VN];
-            Vec<T>::load(v + (k0 + nn) * a.v_ss + dv, x);
 #pragma unroll
-            for (int e = 0; e < VN; e += 4)
-                *reinterpret_cast<float4*>(vs + nn * HD + dv + e) =
-                    make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-        }
-        float s[MAXG];
-        if (n < n_end) {
+    for (int j = 0; j < STAGES - 1; ++j) {
+        if (j < my_tiles) issue(j);
+        cp_async_commit();
+    }
+    const int grp = lane / LW, li = lane % LW;  // lane group (row), lane in it
+    // small groups keep the lane's chunks of the query rows in registers
+    constexpr bool QREG = GCAP <= 4;
+    float qr[QREG ? GCAP : 1][NA];
+    if constexpr (QREG) {
 #pragma unroll
-            for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
-            const T* kr = k + n * a.k_ss;
-#pragma unroll 4
-            for (int d = 0; d < HD; d += VN) {
-                float kv[VN];
-                Vec<T>::load(kr + d, kv);
+        for (int g = 0; g < GCAP; ++g)
 #pragma unroll
-                for (int g = 0; g < MAXG; ++g) {
+            for (int ci = 0; ci < CPL; ++ci)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                    qr[g][ci * VEC + e] =
+                        g < G ? qs[g * HD + (li + LW * ci) * VEC + e] : 0.f;
+    }
+    for (int j = 0; j < my_tiles; ++j) {
+        if (j + STAGES - 1 < my_tiles) issue(j + STAGES - 1);
+        cp_async_commit();
+        cp_async_wait<STAGES - 1>();  // tile j's copies have landed
+        __syncwarp();
+        const uint8_t* kst = my_ring + (j % STAGES) * D::STAGE;
+        const uint8_t* vst = kst + PW * ROW;
+        const int64_t r0 = n0 + (int64_t)(warp + j * WARPS) * PW;
+        const int rows = (int)min((int64_t)PW, n1 - r0);
+#pragma unroll
+        for (int rr = 0; rr < PW / PWT; ++rr) {
+            const int r = rr * PWT + grp;
+            float sd[GCAP];
+#pragma unroll
+            for (int g = 0; g < GCAP; ++g) sd[g] = 0.f;
+#pragma unroll
+            for (int ci = 0; ci < CPL; ++ci) {
+                const int c = li + LW * ci;
+                float kv[VEC];
+                Vec<T>::load(kst + r * ROW + c * 16, kv);
+#pragma unroll
+                for (int g = 0; g < GCAP; ++g) {
                     if (g < G) {
 #pragma unroll
-                        for (int e = 0; e < VN; ++e)
-                            s[g] = fmaf(qs[g * HD + d + e], kv[e], s[g]);
+                        for (int e = 0; e < VEC; ++e) {
+                            float qv;
+                            if constexpr (QREG) qv = qr[g][ci * VEC + e];
+                            else qv = qs[g * HD + c * VEC + e];
+                            sd[g] = fmaf(qv, kv[e], sd[g]);
+                        }
                     }
                 }
             }
-            if (n >= a.kv_len) {
 #pragma unroll
-                for (int g = 0; g < MAXG; ++g) s[g] = NEG_INF;
+            for (int g = 0; g < GCAP; ++g) {
+                if (g < G) {
+#pragma unroll
+                    for (int off = LW / 2; off > 0; off >>= 1)
+                        sd[g] += __shfl_xor_sync(0xffffffffu, sd[g], off);
+                }
             }
-        } else {
+            if (r < rows) {  // the same for every lane of a group
+                float vv[NA];
 #pragma unroll
-            for (int g = 0; g < MAXG; ++g) s[g] = -INFINITY;  // not a position
-        }
-
-        // the tile's max per g
+                for (int ci = 0; ci < CPL; ++ci)
+                    Vec<T>::load(vst + r * ROW + (li + LW * ci) * 16,
+                                 vv + ci * VEC);
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-            if (g >= G) break;
-            float x = s[g];
+                for (int g = 0; g < GCAP; ++g) {
+                    if (g < G) {
+                        const float s = all_masked ? NEG_INF : sd[g];
+                        const float mn = fmaxf(m[g], s);
+                        const float al = expf(m[g] - mn);
+                        const float p = expf(s - mn);
+                        l[g] = l[g] * al + p;
+                        m[g] = mn;
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-            if (lane == 0) red_max[warp * MAXG + g] = x;
-        }
-        __syncthreads();
-        float alpha[MAXG];
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-            if (g >= G) break;
-            float mx = red_max[g];
-#pragma unroll
-            for (int w = 1; w < WARPS; ++w)
-                mx = fmaxf(mx, red_max[w * MAXG + g]);
-            const float m_new = fmaxf(m_run[g], mx);
-            alpha[g] = expf(m_run[g] - m_new);
-            m_run[g] = m_new;
-            const float p = expf(s[g] - m_new);
-            ps[g * THREADS + tid] = p;
-            float x = p;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                x += __shfl_xor_sync(0xffffffffu, x, off);
-            if (lane == 0) red_sum[warp * MAXG + g] = x;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-            if (g >= G) break;
-            float sum = 0.f;
-#pragma unroll
-            for (int w = 0; w < WARPS; ++w) sum += red_sum[w * MAXG + g];
-            l_run[g] = l_run[g] * alpha[g] + sum;
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) acc[g][c] *= alpha[g];
-        }
-
-        for (int nn = kg; nn < tile; nn += KG) {
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) {
-                const float vv = vs[nn * HD + d0 + c * THREADS];
-#pragma unroll
-                for (int g = 0; g < MAXG; ++g) {
-                    if (g < G)
-                        acc[g][c] = fmaf(ps[g * THREADS + nn], vv, acc[g][c]);
+                        for (int e = 0; e < NA; ++e)
+                            acc[g][e] = fmaf(p, vv[e], acc[g][e] * al);
+                    }
                 }
             }
         }
-        __syncthreads();  // vs / ps / red are rewritten by the next tile
+        __syncwarp();  // the stage is read; the next issue may refill it
     }
 
-    if (KG > 1) {  // sum the key groups' partial accumulators (hd < 128)
-        float* part = ps;  // [KG][MAXG][HD] = MAXG * THREADS floats
+    // merge the lane groups of the warp (rows taken side by side)
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-            if (g < G) part[(kg * MAXG + g) * HD + d0] = acc[g][0];
-        __syncthreads();
-        if (kg == 0) {
+    for (int off = LW; off < 32; off <<= 1) {
 #pragma unroll
-            for (int g = 0; g < MAXG; ++g) {
-                if (g >= G) break;
-                float x = 0.f;
-                for (int j = 0; j < KG; ++j) x += part[(j * MAXG + g) * HD + d0];
-                acc[g][0] = x;
+        for (int g = 0; g < GCAP; ++g) {
+            if (g < G) {
+                const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+                const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+                const float mn = fmaxf(m[g], mo);
+                const float a1 = expf(m[g] - mn), a2 = expf(mo - mn);
+                l[g] = l[g] * a1 + lo * a2;
+                m[g] = mn;
+#pragma unroll
+                for (int e = 0; e < NA; ++e) {
+                    const float x =
+                        __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+                    acc[g][e] = acc[g][e] * a1 + x * a2;
+                }
             }
         }
     }
-    if (kg == 0) {
+
+    // then the warps, through shared memory (the ring is done with)
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    float* mrg = reinterpret_cast<float*>(ring);  // [WARPS][GCAP][HD + 2]
+    if (grp == 0) {
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-            if (g >= G) break;
-            const float denom = fmaxf(l_run[g], 1e-30f);
+        for (int g = 0; g < GCAP; ++g) {
+            if (g < G) {
+                float* row = mrg + ((size_t)warp * GCAP + g) * (HD + 2);
 #pragma unroll
-            for (int c = 0; c < CPT; ++c)
-                o[g * a.o_sg + d0 + c * THREADS] = from_f<T>(acc[g][c] / denom);
+                for (int ci = 0; ci < CPL; ++ci)
+#pragma unroll
+                    for (int e = 0; e < VEC; ++e)
+                        row[(li + LW * ci) * VEC + e] = acc[g][ci * VEC + e];
+                if (li == 0) {
+                    row[HD] = m[g];
+                    row[HD + 1] = l[g];
+                }
+            }
+        }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < G * HD; idx += THREADS) {
+        const int g = idx / HD, d = idx % HD;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w)
+            mx = fmaxf(mx, mrg[((size_t)w * GCAP + g) * (HD + 2) + HD]);
+        float lsum = 0.f, osum = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+            const float* row = mrg + ((size_t)w * GCAP + g) * (HD + 2);
+            const float f = expf(row[HD] - mx);
+            lsum += row[HD + 1] * f;
+            osum += row[d] * f;
+        }
+        if (nsplit == 1) {
+            T* o = (T*)a.o + bh * a.o_sbh;
+            o[g * a.o_sg + d] = from_f<T>(osum / fmaxf(lsum, 1e-30f));
+        } else {
+            float* pr = part + ((bh * nsplit + split) * G + g) * (HD + 2);
+            pr[d] = osum;
+            if (d == 0) {
+                pr[HD] = mx;
+                pr[HD + 1] = lsum;
+            }
         }
     }
 }
 
-template <typename T, int HD>
-static int launch(const DecodeArgs* a, cudaStream_t stream) {
-    constexpr size_t smem = decode_smem_bytes<HD>();
-    auto fn = decode_kernel<T, HD>;
+// the splits' partials [BH][nsplit][G][hd + 2] (o, m, l), merged in split
+// order
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+decode_combine_kernel(DecodeArgs a, const float* part, int nsplit, int hd) {
+    const int64_t bh = blockIdx.x;
+    const int G = (int)a.G;
+    T* o = (T*)a.o + bh * a.o_sbh;
+    for (int idx = threadIdx.x; idx < G * hd; idx += THREADS) {
+        const int g = idx / hd, d = idx % hd;
+        const float* p0 = part + (bh * nsplit * G + g) * (hd + 2);
+        const int64_t step = (int64_t)G * (hd + 2);  // to the next split
+        float mx = NEG_INF;
+        for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, p0[s * step + hd]);
+        float lsum = 0.f, osum = 0.f;
+        for (int s = 0; s < nsplit; ++s) {
+            const float* pr = p0 + s * step;
+            const float f = expf(pr[hd] - mx);
+            lsum += pr[hd + 1] * f;
+            osum += pr[d] * f;
+        }
+        o[g * a.o_sg + d] = from_f<T>(osum / fmaxf(lsum, 1e-30f));
+    }
+}
+
+template <typename T, int HD, int GCAP>
+static int launch(const DecodeArgs* a, int nsplit, float* part,
+                  cudaStream_t stream) {
+    using D = Dc<T, HD, GCAP>;
+    auto fn = decode_split_kernel<T, HD, GCAP>;
     cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D::SMEM);
     if (err != cudaSuccess) return (int)err;
-    fn<<<(unsigned)a->BH, THREADS, smem, stream>>>(*a);
+    fn<<<dim3((unsigned)a->BH, (unsigned)nsplit), THREADS, D::SMEM, stream>>>(
+        *a, part, nsplit);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || nsplit == 1) return (int)err;
+    decode_combine_kernel<T><<<(unsigned)a->BH, THREADS, 0, stream>>>(
+        *a, part, nsplit, HD);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_hd(const DecodeArgs* a, int hd, cudaStream_t stream) {
+template <typename T, int GCAP>
+static int launch_hd(const DecodeArgs* a, int hd, int nsplit, float* part,
+                     cudaStream_t stream) {
     switch (hd) {
-        case 16: return launch<T, 16>(a, stream);
-        case 64: return launch<T, 64>(a, stream);
-        case 128: return launch<T, 128>(a, stream);
-        case 256: return launch<T, 256>(a, stream);
+        case 16: return launch<T, 16, GCAP>(a, nsplit, part, stream);
+        case 64: return launch<T, 64, GCAP>(a, nsplit, part, stream);
+        case 128: return launch<T, 128, GCAP>(a, nsplit, part, stream);
+        case 256: return launch<T, 256, GCAP>(a, nsplit, part, stream);
         default: return -1;
     }
 }
 
-// dtype 0 = float32, 1 = bfloat16.  Returns the CUDA error of the launch
-// (0 = launched), or -1 for a head dim not instantiated or G > MAXG.
+template <typename T>
+static int launch_g(const DecodeArgs* a, int hd, int nsplit, float* part,
+                    cudaStream_t stream) {
+    if (a->G <= 2) return launch_hd<T, 2>(a, hd, nsplit, part, stream);
+    return launch_hd<T, MAXG>(a, hd, nsplit, part, stream);
+}
+
+// dtype 0 = float32, 1 = bfloat16.  ``part`` is f32 scratch of
+// BH * nsplit * G * (hd + 2) values (unused when nsplit is 1).  Launches
+// the split kernel and, for nsplit > 1, the merge.  Returns the CUDA error
+// of the launches (0 = launched), or -1 for a head dim not instantiated,
+// G > MAXG or nsplit < 1.
 extern "C" int decode_attention_launch(const DecodeArgs* args, int dtype,
-                                       int hd, void* stream) {
-    if (args->G < 1 || args->G > MAXG) return -1;
+                                       int hd, int nsplit, float* part,
+                                       void* stream) {
+    if (args->G < 1 || args->G > MAXG || nsplit < 1) return -1;
+    if (nsplit > 1 && part == nullptr) return -1;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0) return launch_hd<float>(args, hd, st);
-    if (dtype == 1) return launch_hd<__nv_bfloat16>(args, hd, st);
+    if (dtype == 0) return launch_g<float>(args, hd, nsplit, part, st);
+    if (dtype == 1) return launch_g<__nv_bfloat16>(args, hd, nsplit, part, st);
     return -1;
 }

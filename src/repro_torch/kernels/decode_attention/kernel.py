@@ -1,5 +1,6 @@
-"""Build and launch the CUDA flash-decode kernel
-(``csrc/decode_attention.cu``).
+"""Build and launch the CUDA flash-decode kernels
+(``csrc/decode_attention.cu``: the split kernel and the merge of the
+splits, one call).
 
 Built at first use by :mod:`repro_torch.kernels.nvcc` into ``build/``
 beside this file and loaded with ``ctypes``.  Nothing here runs at import
@@ -46,20 +47,22 @@ def load_library():
     lib = ctypes.CDLL(str(path))
     fn = lib.decode_attention_launch
     fn.argtypes = [ctypes.POINTER(DecodeArgs), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def decode_attention_cuda(q, k, v, out, kv_len: int, *, Hkv: int, Skv: int,
-                          strides: tuple) -> None:
-    """Launch the kernel on PyTorch's current stream.
+                          strides: tuple, nsplit: int, part=None) -> None:
+    """Launch the split kernel and, for ``nsplit`` > 1, the merge of the
+    splits, on PyTorch's current stream, in one call.
 
     ``q`` and ``out`` are (BHkv, G, hd) with a contiguous head dim;
     ``strides`` gives q's (bh, g), k's and v's (batch, head, sequence) and
-    out's (bh, g) element strides, where bh = batch * Hkv + head.  The
-    caller (:mod:`repro_torch.kernels.decode_attention.ops`) has checked
-    the operands, 16-byte aligned rows included."""
+    out's (bh, g) element strides, where bh = batch * Hkv + head; ``part``
+    is f32 scratch of BHkv * nsplit * G * (hd + 2) values (None for one
+    split).  The caller (:mod:`repro_torch.kernels.decode_attention.ops`)
+    has checked the operands, 16-byte aligned rows included."""
     BH, G, hd = q.shape
     a = DecodeArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    BH, Hkv, G, Skv, int(kv_len), *strides, scale_of(hd))
@@ -67,8 +70,9 @@ def decode_attention_cuda(q, k, v, out, kv_len: int, *, Hkv: int, Skv: int,
     dev = q.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.decode_attention_launch(ctypes.byref(a), DTYPES[q.dtype],
-                                         hd, stream)
+        rc = lib.decode_attention_launch(
+            ctypes.byref(a), DTYPES[q.dtype], hd, int(nsplit),
+            None if part is None else part.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: {rc} "
                            "(-1: no instance for this head dim / group; "

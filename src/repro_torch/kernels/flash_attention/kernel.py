@@ -1,5 +1,6 @@
-"""Build and launch the CUDA flash-attention kernel
-(``csrc/flash_attention.cu``).
+"""Build and launch the CUDA flash-attention kernels
+(``csrc/flash_attention.cu``): the tensor-core kernel for bf16 inputs (the
+serving paths), the SIMT kernel for f32 inputs.
 
 Built at first use by :mod:`repro_torch.kernels.nvcc` into ``build/``
 beside this file and loaded with ``ctypes``.  Nothing here runs at import
@@ -20,8 +21,12 @@ _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "flash_attention.cu"
 BUILD_DIR = _HERE / "build"
 HEAD_DIMS = (16, 64, 128, 256)
-TILES = ((64, 32), (32, 32), (64, 64))  # (bq, bk) instantiated; first = default
+# input type -> kernel: 0 the f32 SIMT kernel, 1 the bf16 tensor-core kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 instance's name (mangled) in a build report, by head dim
+TC_INSTANCE = "flash_tc_kernelILi{hd}E"
+LAUNCH_ERRORS = {-1: "no instance for this head dim and type",
+                 -2: "a TMA map could not be built"}
 
 
 class FlashArgs(ctypes.Structure):
@@ -49,9 +54,24 @@ def load_library():
     lib = ctypes.CDLL(str(path))
     fn = lib.flash_attention_launch
     fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    info = lib.flash_attention_info
+    info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    info.restype = ctypes.c_int
     return lib
+
+
+def tc_info(hd: int) -> dict:
+    """The bf16 tensor-core instance of head dim ``hd`` as the runtime
+    sees it: dynamic shared memory, threads a block, registers a thread,
+    local memory a thread."""
+    out = (ctypes.c_int * 4)()
+    rc = load_library().flash_attention_info(hd, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_info({hd}) failed: {rc}")
+    return dict(zip(("dynamic_smem_bytes", "threads", "registers",
+                     "local_bytes"), out))
 
 
 def scale_of(hd: int) -> float:
@@ -60,14 +80,14 @@ def scale_of(hd: int) -> float:
 
 
 def flash_attention_cuda(q, k, v, out, *, dims: tuple, strides: tuple,
-                         causal: bool, window: int, bq: int, bk: int) -> None:
-    """Launch the kernel on PyTorch's current stream.
+                         causal: bool, window: int) -> None:
+    """Launch the kernel for q's type on PyTorch's current stream.
 
     ``dims`` is (B, Hq, Hkv, Sq, Skv); ``strides`` gives, for q, k, v and
     out in turn, the element strides (batch, sequence, head) of a layout
     whose head dim is contiguous.  The caller
     (:mod:`repro_torch.kernels.flash_attention.ops`) has checked the
-    operands."""
+    operands, 16-byte alignment included."""
     a = FlashArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   *dims, *strides, int(bool(causal)), int(window),
                   scale_of(q.shape[-1]))
@@ -76,8 +96,7 @@ def flash_attention_cuda(q, k, v, out, *, dims: tuple, strides: tuple,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flash_attention_launch(ctypes.byref(a), DTYPES[q.dtype],
-                                        q.shape[-1], bq, bk, stream)
+                                        q.shape[-1], stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: {rc} "
-                           "(-1: no instance for this head dim / tile; "
-                           "else a CUDA error)")
+                           f"({LAUNCH_ERRORS.get(rc, 'a CUDA error')})")

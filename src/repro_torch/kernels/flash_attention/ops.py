@@ -3,16 +3,20 @@
 :func:`flash_attention` is the one entry to the kernel: for CPU tensors it
 runs the plain version (:func:`flash_attention_plain`: the JAX wrapper's
 GQA flattening to (B*H, S, hd), then :mod:`.ref`); for CUDA tensors it
-launches the CUDA kernel (:mod:`.kernel`) on the (B, S, H, hd) strides
-directly, with no transpose, or raises — there is no fallback.
-``flash_attention.launches`` counts kernel launches (it stays 0 on the
-CPU).
+launches a CUDA kernel (:mod:`.kernel`) on the (B, S, H, hd) strides
+directly, with no transpose, or raises — there is no fallback.  The
+inputs' type picks the kernel: bf16 (the serving paths) runs on the
+tensor cores (wgmma, K and V tiles by TMA), f32 on the SIMT kernel, whose
+f32 products hold the f32 bound that bf16 or TF32 tensor cores cannot; a
+bf16 instance that fails to build or launch raises.  The tile is each
+kernel's own.  ``flash_attention.launches`` counts kernel launches (it
+stays 0 on the CPU).
 """
 from __future__ import annotations
 
 import torch
 
-from .kernel import DTYPES, HEAD_DIMS, TILES, flash_attention_cuda
+from .kernel import DTYPES, HEAD_DIMS, flash_attention_cuda
 from .ref import attention_ref
 
 
@@ -37,6 +41,16 @@ def check_qkv(q, k, v) -> None:
                          f"{k.shape[2]} kv heads")
 
 
+def check_aligned(*named) -> None:
+    """What the kernels' 16-byte copies (TMA, cp.async) need: each
+    (name, tensor)'s base 16-byte aligned and its batch, sequence and head
+    strides multiples of 16 bytes."""
+    for name, t in named:
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError(f"{name}: rows must be 16-byte aligned")
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """The plain version in the wrapper's layout: q (B, Sq, Hq, hd);
     k, v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
@@ -49,13 +63,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return o3.reshape(B, Hq, Sq, hd).transpose(1, 2)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    bq: int = 64, bk: int = 32):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd).
 
-    Query head hq reads kv head hq // (Hq // Hkv).  ``(bq, bk)`` is the
-    kernel's tile (one of ``kernel.TILES``); the plain version ignores it.
-    """
+    Query head hq reads kv head hq // (Hq // Hkv)."""
     check_qkv(q, k, v)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
@@ -67,8 +78,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _, Skv, Hkv, _ = k.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the kernel has {HEAD_DIMS}")
-    if (bq, bk) not in TILES:
-        raise ValueError(f"tile {(bq, bk)}: the kernel has {TILES}")
+    check_aligned(("q", q), ("k", k), ("v", v))
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -77,8 +87,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     strides = tuple(s for t in (q, k, v, out)
                     for s in (t.stride(0), t.stride(1), t.stride(2)))
     flash_attention_cuda(q, k, v, out, dims=(B, Hq, Hkv, Sq, Skv),
-                         strides=strides, causal=causal, window=int(window),
-                         bq=bq, bk=bk)
+                         strides=strides, causal=causal, window=int(window))
     flash_attention.launches += 1
     return out
 

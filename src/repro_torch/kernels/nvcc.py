@@ -91,3 +91,20 @@ def ptxas_table(report: str) -> dict:
         if m:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def sass_counts(lib: Path, opcode: str) -> dict:
+    """{kernel (mangled name): instructions named ``opcode``} in a built
+    library's SASS (``cuobjdump -sass``, beside nvcc in the toolkit)."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True)
+    out, name = {}, None
+    for ln in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+        elif name is not None and re.search(rf"\b{opcode}\b", ln):
+            out[name] += 1
+    return out

@@ -390,10 +390,17 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: Params,
             batch: Dict[str, Any]):
     """Returns (the last position's logits (B, V), the decode cache).
 
-    The head is applied to the last position only: the same logits as
-    ``forward(...)[0][:, -1]`` without the (B, S, V) tensor."""
+    On CPU tensors the head is applied to all B * S rows and the last
+    position taken, as the JAX package does: a product over B rows sums in
+    another order than one over B * S rows and can differ in a last bit.
+    On the card the head is applied to the last position only (the same
+    function without the (B, S, V) tensor, 1.2 GB at qwen3-1.7b's serving
+    shape)."""
     x, cache = _backbone(cfg, run, params, batch, "prefill")
-    return dot(x[:, -1], _head_weight(cfg, params)), cache
+    w = _head_weight(cfg, params)
+    if x.device.type == "cpu":
+        return dot(x, w)[:, -1], cache
+    return dot(x[:, -1], w), cache
 
 
 def decode_step(cfg: ModelConfig, run: RunConfig, params: Params,

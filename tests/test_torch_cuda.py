@@ -23,6 +23,7 @@ from repro_torch.core import (HookConfig, interop, pack_fleet,
 from repro_torch.core.machine import MachineState
 from repro_torch.core.runtime import fleet_trace
 from repro_torch.configs import RunConfig, get_smoke
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
@@ -189,19 +190,43 @@ def _full_f32_products():
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", SMOKE.FLASH_CASES, ids=str)
 def test_flash_kernel_matches_plain(card, case, dtype):
-    """Every tile shape; ragged lengths, windows with dead rows, GQA/MQA,
-    head dims 16-256; one counted launch per call."""
+    """bf16 through the tensor-core kernel, f32 through the SIMT kernel;
+    ragged lengths, windows with dead rows, GQA/MQA, head dims 16-256; one
+    counted launch per call."""
     q, k, v = SMOKE.flash_inputs(case, dtype, 0, card)
     want = fops.flash_attention_plain(q, k, v, causal=case[6],
                                       window=case[7])
-    for bq, bk in fkernel.TILES:
-        n0 = fops.flash_attention.launches
-        got = fops.flash_attention(q, k, v, causal=case[6], window=case[7],
-                                   bq=bq, bk=bk)
-        torch.cuda.synchronize()
-        assert fops.flash_attention.launches == n0 + 1
-        err, n_over = SMOKE.over_bound(got, want, dtype)
-        assert n_over == 0, f"tile {(bq, bk)}: max err {err}"
+    n0 = fops.flash_attention.launches
+    got = fops.flash_attention(q, k, v, causal=case[6], window=case[7])
+    torch.cuda.synchronize()
+    assert fops.flash_attention.launches == n0 + 1
+    err, n_over = SMOKE.over_bound(got, want, dtype)
+    assert n_over == 0, f"max err {err}"
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_bf16_instances_are_tensor_core_code(card, hd):
+    """The main paths' bf16 instances (head dim 128: qwen3-1.7b; 256:
+    recurrentgemma-2b) hold HGMMA (wgmma) in their SASS, without spills."""
+    lib, report = fkernel.build()
+    name = fkernel.TC_INSTANCE.format(hd=hd)
+    hgmma = {k: n for k, n in nvcc.sass_counts(lib, "HGMMA").items()
+             if name in k}
+    assert len(hgmma) == 1 and all(hgmma.values()), hgmma
+    if report:  # built in this process: ptxas's report is at hand
+        rows = [v for k, v in nvcc.ptxas_table(report).items() if name in k]
+        assert rows and rows[0]["spill_stores"] == rows[0]["spill_loads"] == 0
+
+
+def test_flash_kernel_raises_on_a_misaligned_view(card):
+    """TMA reads 16-byte aligned rows: a view off by one element raises."""
+    case = (1, 64, 64, 2, 1, 64, True, 0)
+    q, k, v = SMOKE.flash_inputs(case, torch.bfloat16, 3, card)
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=card)
+    qm = buf[1:1 + q.numel()].view(q.shape)
+    qm.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fops.flash_attention(qm, k, v)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -216,6 +241,33 @@ def test_decode_kernel_matches_plain(card, case, dtype):
     assert dops.decode_attention.launches == n0 + 1
     err, n_over = SMOKE.over_bound(got, want, dtype)
     assert n_over == 0, f"max err {err}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SMOKE.DECODE_SPLIT_CASES, ids=str)
+def test_decode_kernel_splits(card, case, dtype):
+    """One split and many, kv_len 0 and past Skv among the many; the split
+    count is the wrapper's chooser's; two calls equal bit for bit."""
+    B, Skv, Hq, Hkv, hd, kv_len = case
+    q, k, v = SMOKE.decode_inputs(case, dtype, 4, card)
+    want = dops.decode_attention_plain(q, k, v, kv_len)
+    got = dops.decode_attention(q, k, v, kv_len)
+    again = dops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    err, n_over = SMOKE.over_bound(got, want, dtype)
+    assert n_over == 0, f"max err {err}"
+    assert torch.equal(got, again)
+
+
+def test_decode_kernel_is_deterministic(card):
+    """qwen3-1.7b's decode shape (5 splits, merged in split order, no
+    atomics): two calls give the same bits."""
+    case = SMOKE.QWEN_DECODE
+    q, k, v = SMOKE.decode_inputs(case, torch.bfloat16, 5, card)
+    assert dops.split_count(case[1], case[5], case[0] * case[3]) > 1
+    outs = [dops.decode_attention(q, k, v, case[5]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*outs)
 
 
 def test_decode_kernel_reads_a_strided_cache(card):
@@ -241,9 +293,6 @@ def test_attention_kernels_raise_on_what_they_do_not_take(card):
         fops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
         dops.decode_attention(q[:, :1], q, q, 4)
-    q = torch.zeros((1, 8, 2, 64), device=card)
-    with pytest.raises(ValueError, match="tile"):
-        fops.flash_attention(q, q, q, bq=128, bk=128)
 
 
 def test_serve_engine_runs_the_kernels(card):

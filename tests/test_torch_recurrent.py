@@ -16,10 +16,13 @@ Three layers, each held to the JAX package compiled with
   bit after prefill and each decode step, prompts shorter and longer than
   the window, the banded prefill (small ``attn_chunk``), decode past the
   ring.  The logits are held to the bf16 bound elementwise (2e-2 + 2e-2 |x|)
-  and their argmax to the reference's outside near-ties: the port applies
-  the head to the last position only, and PyTorch's CPU GEMM on those
-  B rows sums in another order than XLA's on B * S rows (prefill) or on
-  its own B rows (decode), which flips a last bf16 bit of a rare logit.
+  and their argmax to the reference's outside near-ties: XLA's rsqrt
+  refines the processor's estimate where ``numerics.rsqrt`` rounds
+  correctly (a rare norm differs in a last bit), and in decode PyTorch's
+  CPU GEMM on the B rows sums in another order than XLA's, which flips a
+  last bf16 bit of a rare logit.  The prefill head runs over all B * S
+  rows on the CPU, as XLA's does: where the backbone agrees bit for bit,
+  so do the prefill logits.
 """
 import dataclasses
 
@@ -41,7 +44,7 @@ from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch import configs, numerics
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref, rglru_scan_seq
-from repro_torch.models import lm
+from repro_torch.models import layers, lm
 from repro_torch.models import recurrent as rec
 from repro_torch.models.interop import params_from_numpy, params_to_numpy
 from repro_torch.serve.engine import Request, ServeEngine
@@ -397,6 +400,25 @@ def test_prefill_and_decode_equal_strict_jax(n_layers, plen, chunk, steps):
         _assert_caches_equal(gc, wc, f"step {step}")
         _within_bf16_bound(gl, wl, f"logits, step {step}")
         _near_tie_or_same_argmax(gl, wl, m[0].vocab, f"step {step}")
+
+
+def test_prefill_head_over_all_rows_equals_jax():
+    """The prefill logits take the head over all B * S rows, then the last
+    position, as the JAX package does.  On this input (5 layers, B 2, a
+    prompt of 8) the backbone equals JAX's bit for bit and only the head's
+    order differed: the product over the last position alone rounds one
+    logit's last bit otherwise."""
+    cfg, run, jp, tcfg, trun, tp = _model(5, 8, 4)
+    toks = np.random.default_rng(408).integers(0, cfg.vocab, (2, 8)).astype(
+        np.int32)
+    want, _ = Strict(lambda p, b: jax_lm.prefill(cfg, run, p, b))(
+        jp, {"tokens": jnp.asarray(toks)})
+    batch = {"tokens": torch.from_numpy(toks).long()}
+    got, _ = lm.prefill(tcfg, trun, tp, batch)
+    _bits_equal(got, want, "prefill logits")
+    x, _ = lm._backbone(tcfg, trun, tp, batch, "prefill")
+    last_only = layers.dot(x[:, -1], lm._head_weight(tcfg, tp))
+    assert (_np(last_only) != _np(want)).any()
 
 
 def _near_tie_or_same_argmax(got, want, vocab, what):
