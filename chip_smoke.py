@@ -31,9 +31,11 @@ every kernel launch counted from 0 just before and read just after:
 * xLSTM serving: the same engine over xlstm-350m at full width and depth
   (24 layers on the pattern mLSTM x 3, sLSTM: 18 mLSTM and 6 sLSTM
   layers, d_model 1024, 4 heads of 512 after the mLSTM's up-projection),
-  the same requests — every mLSTM layer's prefill and decode step one
-  launch of the CUDA mlstm_chunk kernel (the state C, n carried in and
-  out); the sLSTM is plain PyTorch, a loop over time.
+  the same requests — every mLSTM layer's prefill one call of the CUDA
+  mLSTM kernels (the scores pass and the state pass on the tensor cores,
+  the state C, n carried in and out) and every decode step one call of
+  the decode step, which writes C and n into the cache in place; the
+  sLSTM is plain PyTorch, a loop over time.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -44,8 +46,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    tensor-core kernel at head dims 128 and 256, flash-decode's bf16 split
    kernel at head dim 128) their registers, spills, shared memory and the
    count of ``HGMMA`` instructions in their SASS (``cuobjdump -sass``);
-   ``mlstm_build``: the mLSTM kernel's registers, spills and dynamic
-   shared memory;
+   ``mlstm_build``: the mLSTM kernels' registers, spills, shared memory
+   and threads, and the ``HGMMA`` count of each (the scores and state
+   passes must have them; no kernel may spill);
 2. ``kernel_vs_plain``: megastep vs its plain PyTorch version on the card,
    one chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit
    for bit — from the emulation-off census and seeded random states, from
@@ -92,11 +95,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     to the larger of 2e-2 and the distance between the two plain routes
     (the kernels' plain versions; the JAX model's own functions), which
     26 random-weight layers put above 2e-2;
-13. ``mlstm_vs_plain``: the mLSTM kernel vs its plain versions,
-    ``tests/test_kernels.py``'s cases, odd lengths, a nonzero state, a
-    decode step, xlstm-350m's prefill and decode shapes: h, C and n within
-    atol 3e-4 / rtol 3e-3 of the chunked plain version at the kernel's
-    chunk and of the sequential recurrence;
+13. ``mlstm_vs_plain``: the mLSTM kernels vs their plain versions,
+    ``tests/test_kernels.py``'s cases, odd lengths, head dims 32 to 512
+    (on and off the state pass's 64 columns), a nonzero state, decode
+    steps, xlstm-350m's prefill and decode shapes: h, C and n within atol
+    3e-4 / rtol 3e-3 of the chunked plain version at the kernels' chunk,
+    of the sequential recurrence and of the kernels' own arithmetic in
+    plain PyTorch; every case called twice, bit-equal; every decode step
+    also in place from a cloned state; device and eager times at both
+    serving shapes beside the bound (bf16 tensor-core peak);
 14. ``serve_xlstm``: the xLSTM serving path, checked as
     ``serve_recurrentgemma`` is, every mLSTM call also against its plain
     version; the relative L2 against the plain route held to the larger
@@ -146,7 +153,7 @@ from repro_torch.kernels.megastep.ref import megastep_chunk_ref  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import kernel as xkernel  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import ops as xops  # noqa: E402
 from repro_torch.kernels.mlstm_chunk.ref import (  # noqa: E402
-    mlstm_chunk_ref, mlstm_seq)
+    mlstm_chunk_ref, mlstm_decode_ref, mlstm_seq, mlstm_tc_ref)
 from repro_torch.kernels.rglru_scan import kernel as rkernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
@@ -306,14 +313,19 @@ RGLRU_CASES = ((2, 256, 256), (1, 512, 512), (3, 128, 1024),
 RG_SCAN_PREFILL, RG_SCAN_DECODE = (8, 512, 2560), (8, 1, 2560)
 # the mLSTM: tests/test_kernels.py:165-166's bound; (B, S, H, dh, a
 # nonzero state?): tests/test_kernels.py:149-154's (BH, S, dh) cases as
-# (BH, S, 1, dh), odd lengths (100, 513), a nonzero state and a decode
-# step from one; the xlstm-350m serving shapes come after (mlstm_phase)
+# (BH, S, 1, dh), odd lengths (100, 513), a nonzero state, decode steps
+# from one, and head dims on both sides of the state pass's 64 columns
+# (32: one block, half empty; 96 and 160: a last block half empty, an odd
+# count of 64-wide slices); the xlstm-350m serving shapes come after
+# (mlstm_phase)
 MLSTM_TOL = (3e-4, 3e-3)
 MLSTM_CASES = ((2, 128, 1, 64, False), (4, 256, 1, 128, False),
                (1, 256, 1, 64, False), (1, 128, 1, 64, False),
                (2, 100, 2, 64, False), (1, 513, 2, 128, False),
                (2, 150, 4, 64, True), (3, 1, 4, 128, True),
-               (2, 70, 4, 512, True))
+               (2, 70, 4, 512, True), (2, 100, 2, 32, True),
+               (1, 130, 2, 96, True), (2, 65, 2, 160, True),
+               (3, 1, 2, 96, True), (2, 1, 2, 32, True))
 XL_ARCH = "xlstm-350m"
 XL_PREFILL, XL_DECODE = (8, 512, 4, 512), (8, 1, 4, 512)
 
@@ -511,20 +523,21 @@ def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0):
     return dops.decode_attention_plain(q, k, v, kv_len)
 
 
-def plain_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk):
-    """The mLSTM kernel's plain version at the kernel's own chunk, in the
+def plain_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk, out=None):
+    """The mLSTM kernels' plain version at the kernels' own chunk, in the
     model's mLSTM's place: the reference the kernel route is held to on
-    the card."""
+    the card.  The plain routes return the new state as new tensors
+    (``out`` is not used; the model copies the state into its cache)."""
     return mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, xkernel.CHUNK)
 
 
-def model_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk):
+def model_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk, out=None):
     """The JAX model's own form: the plain version at the model's chunk
     (``run.mlstm_chunk`` at prefill, 1 at decode)."""
     return mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, chunk)
 
 
-def seq_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk):
+def seq_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk, out=None):
     """The definitional recurrence, one step at a time."""
     return mlstm_seq(q, k, v, log_f, log_i, C0, n0)
 
@@ -1022,15 +1035,18 @@ class ScanCheck:
 
 class MlstmCheck:
     """Stands in for the model's mLSTM during a run on the card: each call
-    runs the kernel, then its plain version at the kernel's chunk on the
-    same inputs, and holds h, C and n to MLSTM_TOL elementwise."""
+    runs the plain version at the kernels' chunk, then the kernels on the
+    same inputs (the decode step writes the state passed in, so the plain
+    version reads it first), and holds h, C and n to MLSTM_TOL
+    elementwise."""
 
     def __init__(self):
         self.calls, self.max_err, self.over = 0, 0.0, 0
 
-    def __call__(self, *args, chunk):
-        got = MLSTM(*args, chunk=chunk)
-        for g, w in zip(got, plain_mlstm(*args, chunk=chunk)):
+    def __call__(self, *args, chunk, out=None):
+        want = plain_mlstm(*args, chunk=chunk)
+        got = MLSTM(*args, chunk=chunk, out=out)
+        for g, w in zip(got, want):
             e, n = over_bound(g, w, torch.float32, MLSTM_TOL)
             self.max_err, self.over = max(self.max_err, e), self.over + n
         self.calls += 1
@@ -1395,31 +1411,118 @@ def serve_rg_phase(dev, card) -> tuple:
     return line, rows
 
 
+def mlstm_build_line(built, card, build_s) -> dict:
+    """The mLSTM library's kernels: ptxas's registers and spills, the
+    runtime's shared memory, threads and local memory, and the count of
+    ``HGMMA`` instructions in each kernel's SASS.  The scores and state
+    passes must be tensor-core code; no kernel may spill."""
+    lib, report = built
+    table = nvcc.ptxas_table(report)  # empty when built before
+    hgmma = nvcc.sass_counts(lib, "HGMMA")
+    kinfo = xkernel.info()
+    rows = {}
+    for name in xkernel.KERNELS:
+        sass = [n for k_, n in hgmma.items() if name in k_]
+        ptxas = [v for k_, v in table.items() if name in k_]
+        if len(sass) != 1:
+            raise AssertionError(f"mlstm kernel {name}: {len(sass)} in the "
+                                 "library's SASS")
+        rows[name] = {"hgmma": sass[0], "ptxas": ptxas[0] if ptxas else None,
+                      **kinfo[name]}
+        spills = ptxas and (ptxas[0]["spill_stores"]
+                            or ptxas[0]["spill_loads"])
+        if rows[name]["local_bytes"] or spills or (
+                "decode" not in name and not sass[0]):
+            raise AssertionError(f"mlstm kernel {name}: {rows[name]}: "
+                                 "spills, or no tensor-core code")
+    return {"phase": "mlstm_build", "card": card, "seconds": build_s,
+            "library": lib.name, "ptxas": nvcc.ptxas_lines(report),
+            "kernels": rows, "chunk": xkernel.CHUNK, "bn": xkernel.BN}
+
+
+def mlstm_kernel_form(q, k, v, log_f, log_i, C0, n0):
+    """The kernels' own arithmetic in plain PyTorch: both prefill passes
+    at S > 1, the decode step (on clones of the state) at S = 1."""
+    if q.shape[1] > 1:
+        return mlstm_tc_ref(q, k, v, log_f, log_i, C0, n0, xkernel.CHUNK)
+    C, n = C0.clone(), n0.clone()
+    return mlstm_decode_ref(q, k, v, log_f, log_i, C, n), C, n
+
+
+def mlstm_timed(args, n_states: int = 4) -> dict:
+    """The kernels' device time (CUDA graph) and eager time on ``args``.
+    At S = 1 the decode step in place, over ``n_states`` clones of the
+    state in turn: at xlstm-350m's decode shape 4 x 33.5 MB, past the
+    50 MB L2, as a serving step finds a layer's state (17 other layers'
+    states came between); a prefill call reads ~151 MB already."""
+    if args[0].shape[1] > 1:
+        call = lambda: xops.mlstm_chunk(*args)  # noqa: E731
+    else:
+        states = [(args[5].clone(), args[6].clone())
+                  for _ in range(n_states)]
+        turn = iter(range(1 << 30))
+
+        def call():
+            st = states[next(turn) % n_states]
+            return xops.mlstm_chunk(*args[:5], *st, out=st)
+    return {"ms": device_ms(call), "eager_ms": cuda_ms(call)}
+
+
+def mlstm_bounds(case) -> dict:
+    """The bound of one call (``mlstm_work``): its operations at the bf16
+    tensor-core peak, where the kernels run them, and the f32 peak's
+    figure beside it."""
+    nbytes, ops = mlstm_work(case)
+    bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
+    return {"bound_ms": bnd, "bound_by": by,
+            "bound_ms_f32_peak": bound_ms(nbytes, ops, torch.float32)[0]}
+
+
 def mlstm_phase(dev, card) -> tuple:
-    """The mLSTM kernel vs its plain versions on the card: every case of
-    MLSTM_CASES, then xlstm-350m's prefill shape (from the zero state) and
-    a decode step from the state that prefill leaves; h, C and n against
-    the chunked plain version at the kernel's chunk and against the
-    sequential recurrence from the same state, each within MLSTM_TOL;
-    kernel, plain and sequential times and the bound at both serving
-    shapes.  Returns (the phase's line, the largest error)."""
+    """The mLSTM kernels vs their plain versions on the card: every case
+    of MLSTM_CASES, then xlstm-350m's prefill shape (from the zero state)
+    and a decode step from the state that prefill leaves; h, C and n
+    against the chunked plain version at the kernels' chunk, the
+    sequential recurrence and the kernels' own arithmetic in plain
+    PyTorch, from the same state, each within MLSTM_TOL; every case called
+    twice, the two results bit-equal; every decode step also in place
+    (``out`` the state itself, cloned), bit-equal to the call that writes
+    new tensors; device and eager times, the plain versions' times and
+    the bound at both serving shapes.  Returns (the phase's line, the
+    largest error)."""
     t0 = time.perf_counter()
-    err = {"chunked": 0.0, "sequential": 0.0}
-    cases = []
+    err = {"chunked": 0.0, "sequential": 0.0, "kernel_form": 0.0}
+    cases, checks = [], 0
 
     def check(case, args):
+        nonlocal checks
         got = xops.mlstm_chunk(*args)
+        again = xops.mlstm_chunk(*args)
+        runs = [("", got)]
+        if args[0].shape[1] == 1:
+            C, n = args[5].clone(), args[6].clone()
+            inplace = xops.mlstm_chunk(*args[:5], C, n, out=(C, n))
+            if inplace[1] is not C or inplace[2] is not n:
+                raise AssertionError("mlstm decode: out not returned")
+            runs.append((" in place", inplace))
         torch.cuda.synchronize()
+        for what, res in runs[1:] + [(" again", again)]:
+            if not all(map(torch.equal, res, got)):
+                raise AssertionError(f"mlstm kernel: {case}{what} != the "
+                                     "first call")
         for name, want in (("chunked", mlstm_chunk_ref(*args,
                                                        xkernel.CHUNK)),
-                           ("sequential", mlstm_seq(*args))):
+                           ("sequential", mlstm_seq(*args)),
+                           ("kernel_form", mlstm_kernel_form(*args))):
             for leaf, g, w in zip("hCn", got, want):
-                e, n = over_bound(g, w, torch.float32, MLSTM_TOL)
-                if n or not torch.isfinite(g).all():
+                e, n_over = over_bound(g, w, torch.float32, MLSTM_TOL)
+                if n_over or not torch.isfinite(g).all():
                     raise AssertionError(
                         f"mlstm kernel != its {name} plain version: {case} "
-                        f"{leaf}: {n} elements over the bound, max err {e}")
+                        f"{leaf}: {n_over} elements over the bound, max err "
+                        f"{e}")
                 err[name] = max(err[name], e)
+                checks += 1
         cases.append(list(case))
         return got
 
@@ -1432,19 +1535,19 @@ def mlstm_phase(dev, card) -> tuple:
     times = {}
     for name, case, args in (("prefill", XL_PREFILL, pre),
                              ("decode", XL_DECODE, dec)):
-        bnd, by = bound_ms(*mlstm_work(case), torch.float32)
         times[name] = {
-            "ms": cuda_ms(lambda: xops.mlstm_chunk(*args)),
+            **mlstm_timed(args), **mlstm_bounds(case),
             "plain_ms": cuda_ms(lambda: mlstm_chunk_ref(*args,
                                                         xkernel.CHUNK),
                                 reps=3),
-            "sequential_ms": cuda_ms(lambda: mlstm_seq(*args), reps=1),
-            "bound_ms": bnd, "bound_by": by}
+            "sequential_ms": cuda_ms(lambda: mlstm_seq(*args), reps=1)}
     return ({"phase": "mlstm_vs_plain", "card": card, "chunk": xkernel.CHUNK,
-             "checks": 6 * len(cases), "cases": cases, "over_bound": 0,
+             "checks": checks, "cases": cases, "over_bound": 0,
+             "two_calls_bit_equal": True, "in_place_bit_equal": True,
              "tolerance": MLSTM_TOL,
              "max_abs_err_vs_chunked": err["chunked"],
              "max_abs_err_vs_sequential": err["sequential"],
+             "max_abs_err_vs_kernel_form": err["kernel_form"],
              "prefill_shape": XL_PREFILL, "decode_shape": XL_DECODE,
              **{f"{k}_{shape}": v for shape, t in times.items()
                 for k, v in t.items()},
@@ -1461,8 +1564,8 @@ def serve_xlstm_phase(dev, card) -> tuple:
     kernel route held to the larger of the bf16 bound's 2e-2 and the
     plain routes' largest distance among themselves; every mLSTM
     call of the kernel run held to its plain version within MLSTM_TOL;
-    the kernel's times at the run's shapes.  Returns (the phase's line,
-    {"mlstm": row} for the kernel table)."""
+    the kernels' device and eager times at the run's shapes.  Returns (the
+    phase's line, {"mlstm": row} for the kernel table)."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     kinds = get_config(XL_ARCH).layer_kinds()
@@ -1505,8 +1608,9 @@ def serve_xlstm_phase(dev, card) -> tuple:
                              "elements over the bound")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    # the kernel's times at the run's shapes: prefill from the zero state,
-    # then decode from the state it leaves (random inputs of those shapes)
+    # the kernels' times at the run's shapes (device time from a CUDA
+    # graph, and eager): prefill from the zero state, then the decode step
+    # in place from the state it leaves (random inputs of those shapes)
     B, H = SERVE_BATCH, cfg.n_heads
     dh = 2 * cfg.d_model // H
     pre = mlstm_inputs((B, plen, H, dh), 10, dev)
@@ -1514,13 +1618,11 @@ def serve_xlstm_phase(dev, card) -> tuple:
     dec = mlstm_inputs((B, 1, H, dh), 11, dev, state=(C, n))
     per_shape = {}
     for S, args in ((plen, pre), (1, dec)):
-        bnd, by = bound_ms(*mlstm_work((B, S, H, dh)), torch.float32)
         per_shape[S] = {
-            "ms": cuda_ms(lambda: xops.mlstm_chunk(*args)),
+            **mlstm_timed(args), **mlstm_bounds((B, S, H, dh)),
             "plain_ms": cuda_ms(lambda: mlstm_chunk_ref(*args,
                                                         xkernel.CHUNK),
-                                reps=3),
-            "bound_ms": bnd, "bound_by": by}
+                                reps=3)}
     mix = {plen: 1 / (1 + SERVE_NEW), 1: SERVE_NEW / (1 + SERVE_NEW)}
     row = {"launches": m["launches"]["mlstm"],
            **{key: sum(w * per_shape[s][key] for s, w in mix.items())
@@ -1550,8 +1652,13 @@ def serve_xlstm_phase(dev, card) -> tuple:
             "mlstm_over_bound": check.over,
             "kernel_ms": {"prefill": per_shape[plen]["ms"],
                           "decode": per_shape[1]["ms"]},
+            "kernel_eager_ms": {"prefill": per_shape[plen]["eager_ms"],
+                                "decode": per_shape[1]["eager_ms"]},
             "mlstm_bound_ms": {"prefill": per_shape[plen]["bound_ms"],
                                "decode": per_shape[1]["bound_ms"]},
+            "mlstm_bound_ms_f32_peak": {
+                "prefill": per_shape[plen]["bound_ms_f32_peak"],
+                "decode": per_shape[1]["bound_ms_f32_peak"]},
             "mlstm_plain_ms": {"prefill": per_shape[plen]["plain_ms"],
                                "decode": per_shape[1]["plain_ms"]},
             "peak_mem_gb": peak_gb,
@@ -1652,15 +1759,7 @@ def main() -> int:
         {"kernel": rows[0][0], **rows[0][1]} if rows else None)
     emit({"phase": "attn_build", "card": card, "seconds": build_s,
           **attn_ptxas})
-    table = nvcc.ptxas_table(built["mlstm_chunk"][1])
-    emit({"phase": "mlstm_build", "card": card, "seconds": build_s,
-          "library": built["mlstm_chunk"][0].name,
-          "ptxas": nvcc.ptxas_lines(built["mlstm_chunk"][1]),
-          "kernels": table,
-          "spill_bytes": sum(v.get("spill_stores", 0) + v.get("spill_loads", 0)
-                             for v in table.values()),
-          "dynamic_smem_bytes_dh512": xkernel.smem_bytes(512),
-          "chunk": xkernel.CHUNK})
+    emit(mlstm_build_line(built["mlstm_chunk"], card, build_s))
 
     # 2. kernel vs plain, one chunk, on the card
     t0 = time.perf_counter()

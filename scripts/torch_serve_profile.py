@@ -10,10 +10,12 @@ tokens (decode budget 64), then decodes 8 tokens, all through the kernels,
 under ``torch.profiler``.  Prints one JSON line per part (prefill, decode): the
 host wall time (synchronised), the device time summed over the kernels
 the profiler saw (device-side events only), the device idle share (1 -
-device / wall), the top kernels by device time and the attention kernels'
-rows by name (``flash_tc_kernel`` / ``flash_kernel``,
-``decode_split_kernel`` and ``decode_combine_kernel``); then the card
-line.
+device / wall), the top kernels by device time and the rows of the
+port's own model kernels by name (attention: ``flash_tc_kernel`` /
+``flash_kernel``, ``decode_split_kernel`` and ``decode_combine_kernel``;
+the RG-LRU scan: ``rglru_scan``; the mLSTM: ``mlstm_scores_kernel``,
+``mlstm_state_kernel``, ``mlstm_decode_n_kernel`` and
+``mlstm_decode_c_kernel``); then the card line.
 Needs a card.
 """
 from __future__ import annotations
@@ -34,8 +36,8 @@ from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 BATCH, PROMPT_LEN, DECODE_STEPS, TOP = 8, 512, 8, 12
-ATTENTION_KERNELS = ("flash_tc_kernel", "flash_kernel", "decode_split_kernel",
-                     "decode_combine_kernel")
+MODEL_KERNELS = ("flash_tc_kernel", "flash_kernel", "decode_split_kernel",
+                 "decode_combine_kernel", "rglru_scan", "mlstm_")
 
 
 def device_us(evt) -> float:
@@ -67,9 +69,9 @@ def profiled(fn, label: str, top: int) -> dict:
             "device_idle_share": (1 - dev_ms / wall_ms) if wall_ms else None,
             "top": [{"name": n[:90], "ms": ms, "calls": c}
                     for n, ms, c in rows[:top]],
-            "attention": [{"name": n[:90], "ms": ms, "calls": c}
-                          for n, ms, c in rows
-                          if any(k in n for k in ATTENTION_KERNELS)]}
+            "model_kernels": [{"name": n[:90], "ms": ms, "calls": c}
+                              for n, ms, c in rows
+                              if any(k in n for k in MODEL_KERNELS)]}
 
 
 def main() -> int:

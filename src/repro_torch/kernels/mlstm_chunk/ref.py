@@ -18,6 +18,20 @@ kernel is held to, and the CPU route).
 
 On CPU tensors both equal their JAX counterparts bit for bit
 (:mod:`repro_torch.numerics` rounds as XLA's CPU backend does).
+
+The CUDA kernels' own arithmetic, in plain PyTorch (the CPU tests hold it
+to the JAX package; on the card it is a reference only):
+
+* :func:`mlstm_tc_ref`: the prefill's two passes at the kernels' chunk of
+  64 — :func:`mlstm_scores_ref` (the gated scores once a chunk, their row
+  sums, the decays and the chunk's share of n) then
+  :func:`mlstm_state_ref` (the state carried over the chunks) — with every
+  f32 operand of a tensor-core product (the state C, the scores, g v)
+  split into three bf16 parts (:func:`split_bf16`: exact) and q, k, v
+  unsplit, products of bf16 values summed in f32, each chunk's update of
+  C added to it with one fused multiply-add.
+* :func:`mlstm_decode_ref`: the decode step (S = 1) in place: n first,
+  then C, then h from the new state.
 """
 from __future__ import annotations
 
@@ -118,3 +132,113 @@ def mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, K: int):
                             numerics.sum_product(kc, k_gate, 1))
     return torch.cat(hs, 1), C, n
 
+
+
+def split_bf16(x, parts: int = 3):
+    """x (f32) as ``parts`` bf16 values (as f32), each the bf16 rounding of
+    what the earlier ones leave: the operands the kernels give the tensor
+    cores for an f32 one.  Two parts carry 16 of its 24 mantissa bits (a
+    relative error of about 2^-17), three all of them."""
+    out = []
+    for _ in range(parts):
+        p = x.bfloat16().float()
+        out.append(p)
+        x = x - p
+    return tuple(out)
+
+
+def _chunks(x, K: int, fill: float = 0.0):
+    """(B, S, H, ...) -> (B, H, n_chunks, K, ...), the tail padded with
+    ``fill``."""
+    S = x.shape[1]
+    pad = -S % K
+    if pad:
+        widths = [0, 0] * (x.dim() - 2) + [0, pad]
+        x = torch.nn.functional.pad(x, widths, value=fill)
+    x = x.movedim(1, 2) if x.dim() > 3 else x.transpose(1, 2)
+    return x.reshape(x.shape[:2] + (-1, K) + x.shape[3:])
+
+
+def mlstm_scores_ref(q, k, log_f, log_i, K: int = 64,
+                     parts: int = 3) -> dict:
+    """The scores pass: q/k (B, S, H, dh), log_f/log_i (B, S, H).  Per
+    (B, H, chunk): ``s_parts`` the gated scores (K, K) as ``parts`` bf16
+    parts,
+    ``rowsum`` (K) their row sums (of the unsplit scores), ``eq`` (K)
+    exp(d_j) / sqrt(dh), ``g`` (K) exp(d_end - d_l + log i_l), ``e_end``
+    exp(d_end) and ``u`` (dh) sum_l g_l k_l.  Rows and columns past S are
+    zero, as the tail's log f = 0 and log i = -1e30 make them."""
+    B, S, H, dh = q.shape
+    scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
+    qf, kf = _chunks(q.float(), K), _chunks(k.float(), K)
+    lf, li = _chunks(log_f.float(), K), _chunks(log_i.float(), K, -1e30)
+    d = numerics.cumsum(lf, -1)
+    d_end = d[..., -1:]
+    pos = torch.arange(qf.shape[2] * K, device=q.device).reshape(-1, K)
+    live = (torch.tril(torch.ones((K, K), dtype=torch.bool,
+                                  device=q.device))
+            & (pos < S)[:, :, None])
+    rel = d[..., :, None] - d[..., None, :] + li[..., None, :]
+    raw = qf @ kf.transpose(-1, -2)
+    s = torch.where(live, raw * scale * torch.exp(torch.clamp_max(rel, 30.0)),
+                    torch.zeros((), device=q.device))
+    g = torch.exp((d_end - d) + li)
+    return {"s_parts": split_bf16(s, parts), "rowsum": s.sum(-1),
+            "eq": torch.exp(d) * scale, "g": g,
+            "e_end": torch.exp(d_end[..., 0]),
+            "u": (g[..., None] * kf).sum(-2)}
+
+
+def mlstm_state_ref(q, k, v, sc: dict, C0, n0, parts=(3, 3)):
+    """The state-and-output pass over the chunks of :func:`mlstm_scores_ref`
+    from (C0, n0), with C and g v in ``parts`` bf16 parts: returns (h (B,
+    S, H, dh) f32, C, n)."""
+    S = q.shape[1]
+    K = sc["s_parts"][0].shape[-1]
+    qf, kf, vf = (_chunks(x.float(), K) for x in (q, k, v))
+    C, n, hs = C0, n0, []
+    for c in range(qf.shape[2]):
+        qc, kc, vc = qf[:, :, c], kf[:, :, c], vf[:, :, c]
+        inter = sum(qc @ p for p in split_bf16(C, parts[0]))
+        intra = sum(p[:, :, c] @ vc for p in sc["s_parts"])
+        eq = sc["eq"][:, :, c]
+        qn = (qc * n[:, :, None, :]).sum(-1)
+        den = torch.clamp_min((eq * qn + sc["rowsum"][:, :, c]).abs(), 1.0)
+        hs.append((eq[..., None] * inter + intra) / den[..., None])
+        gv = split_bf16(sc["g"][:, :, c, :, None] * vc, parts[1])
+        e_end = sc["e_end"][:, :, c]
+        kt = kc.transpose(-1, -2)
+        C = numerics.muladd(C, e_end[..., None, None],
+                            sum(kt @ p for p in gv))
+        n = numerics.muladd(n, e_end[..., None], sc["u"][:, :, c])
+    h = torch.stack(hs, 2).flatten(2, 3)[:, :, :S]
+    return h.transpose(1, 2), C, n
+
+
+def mlstm_tc_ref(q, k, v, log_f, log_i, C0, n0, K: int = 64,
+                 parts=(3, 3, 3)):
+    """The prefill's kernels, both passes: q/k/v (B, S, H, dh), log_f/
+    log_i (B, S, H) f32, (C0, n0) the state; C, the scores and g v in
+    ``parts`` bf16 parts (the kernels': three each); returns (h f32, C,
+    n)."""
+    sc = mlstm_scores_ref(q, k, log_f, log_i, K, parts[1])
+    return mlstm_state_ref(q, k, v, sc, C0, n0, (parts[0], parts[2]))
+
+
+def mlstm_decode_ref(q, k, v, log_f, log_i, C, n):
+    """The decode step in place: q/k/v (B, 1, H, dh), log_f/log_i (B, 1,
+    H); C (B, H, dh, dh) and n (B, H, dh) f32 are overwritten with the new
+    state (n = f n + i k, then C = f C + i k v^T); returns h (B, 1, H, dh)
+    f32 = (q / sqrt(dh)) . C / max(|(q / sqrt(dh)) . n|, 1)."""
+    dh = q.shape[-1]
+    scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
+    f = torch.exp(log_f[:, 0].float())[..., None]
+    i = torch.exp(torch.clamp_max(log_i[:, 0].float(), 30.0))[..., None]
+    qs = q[:, 0].float() * scale
+    ik = i * k[:, 0].float()
+    n.copy_(numerics.muladd(f, n, ik))
+    den = torch.clamp_min((qs * n).sum(-1).abs(), 1.0)
+    C.copy_(numerics.muladd(f[..., None], C, ik[..., :, None]
+                            * v[:, 0].float()[..., None, :]))
+    h = (qs[..., :, None] * C).sum(-2) / den[..., None]
+    return h[:, None]

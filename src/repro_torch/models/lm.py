@@ -298,9 +298,9 @@ def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
 
 def _write_back(cache: Params, new: Params) -> None:
     """Decode: copy every leaf of a block's new state that is not already
-    the cache's own tensor (the recurrent states — RG-LRU, mLSTM, sLSTM —
-    are new tensors; attention rows were written in place) into the
-    cache."""
+    the cache's own tensor into the cache (the RG-LRU and sLSTM states,
+    and the mLSTM's on the CPU, are new tensors; attention rows, and on
+    the card the mLSTM's C and n, were written in place)."""
     for leaf, t in new.items():
         if t is not cache[leaf]:
             cache[leaf].copy_(t)

@@ -19,8 +19,9 @@ up-projection) with an exp input gate and a sigmoid forget gate, in the
 chunkwise-parallel form; prefill from (C, n) = 0 and decode one step
 from the cached state both go through
 :func:`repro_torch.kernels.mlstm_chunk.ops.mlstm_chunk` — on the card the
-CUDA kernel, on the CPU the JAX model's ``mlstm_scan_chunked`` at
-``run.mlstm_chunk`` (prefill) or 1 (decode).
+CUDA kernels (the decode step in place, in the cache's tensors), on the
+CPU the JAX model's ``mlstm_scan_chunked`` at ``run.mlstm_chunk``
+(prefill) or 1 (decode).
 
 sLSTM: exp-gated scalar memory with normaliser and max-stabiliser, a
 Python loop over time (the JAX model's ``lax.scan``; no kernel computes
@@ -146,17 +147,21 @@ def init_mlstm(cfg: ModelConfig, gen: torch.Generator, *, lead=()) -> dict:
     }
 
 
-def mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk: int):
+def mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk: int, *,
+                       out=None):
     """The JAX model's chunkwise mLSTM: q/k/v (B, S, H, dh), log_f/log_i
-    (B, S, H) f32, (C0, n0) the state; returns (h f32, C, n).  The
-    function :func:`repro_torch.kernels.mlstm_chunk.ops.mlstm_chunk`
-    computes (its plain version on CPU tensors, the kernel on the card)."""
-    return mlstm_chunk(q, k, v, log_f, log_i, C0, n0, chunk=chunk)
+    (B, S, H) f32, (C0, n0) the state; returns (h f32, C, n), C and n in
+    ``out`` when it is given.  The function
+    :func:`repro_torch.kernels.mlstm_chunk.ops.mlstm_chunk` computes (its
+    plain version on CPU tensors, the kernels on the card)."""
+    return mlstm_chunk(q, k, v, log_f, log_i, C0, n0, chunk=chunk, out=out)
 
 
 def apply_mlstm(cfg: ModelConfig, p: dict, x, cache=None, chunk: int = 256):
     """x: (B, S, d) -> (y, cache).  cache: {"C", "n"} for decode (one step
-    from the cached state, chunk 1); the new cache's tensors are new."""
+    from the cached state, chunk 1).  On the card the decode step writes
+    the new state into the cache's own tensors and returns them; on the
+    CPU (the JAX form) the new cache's tensors are new."""
     B, S, _ = x.shape
     H, dt = cfg.n_heads, x.dtype
     up = dot(x, p["w_up"].to(dt))
@@ -176,7 +181,9 @@ def apply_mlstm(cfg: ModelConfig, p: dict, x, cache=None, chunk: int = 256):
         n0 = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
     else:
         C0, n0, chunk = cache["C"], cache["n"], 1
-    h, C, n = mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk)
+    out = (C0, n0) if cache is not None and x.is_cuda else None
+    h, C, n = mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk,
+                                 out=out)
     y = h.reshape(B, S, di).to(dt) * silu(gate)
     return dot(y, p["w_down"].to(dt)), {"C": C, "n": n}
 

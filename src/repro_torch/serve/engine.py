@@ -11,7 +11,10 @@ flash attention for every prefill layer and flash-decode for every decode
 step's layer; for recurrentgemma-2b flash attention (with the window) for
 every local-attention prefill and the RG-LRU scan kernel for every RG-LRU
 layer's prefill and decode step, the ring decode of local attention being
-the model's plain masked attention.
+the model's plain masked attention; for xlstm-350m the mLSTM kernels for
+every mLSTM layer's prefill (the scores pass and the state pass) and
+decode step (in place, in the cache), the sLSTM being a plain loop over
+time.
 """
 from __future__ import annotations
 

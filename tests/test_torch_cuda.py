@@ -31,10 +31,12 @@ from repro_torch.kernels.megastep import ops as mops
 from repro_torch.kernels.megastep.ref import megastep_chunk_ref
 from repro_torch.kernels.mlstm_chunk import kernel as xkernel
 from repro_torch.kernels.mlstm_chunk import ops as xops
-from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref, mlstm_seq
+from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_ref,
+                                                mlstm_decode_ref, mlstm_seq)
 from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref, rglru_scan_seq
 from repro_torch.models import lm
+from repro_torch.models import recurrent as rec
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.trace import policy as tpolicy
 
@@ -446,6 +448,97 @@ def test_mlstm_kernel_raises_on_what_it_does_not_take(card):
         xops.mlstm_chunk(q[..., :48], k[..., :48], v[..., :48], lf, li,
                          C0[..., :48, :48].contiguous(),
                          n0[..., :48].contiguous())
+
+
+def _hold_mlstm(got, want):
+    for g, w in zip(got, want):
+        err, n_over = SMOKE.over_bound(g, w, torch.float32, SMOKE.MLSTM_TOL)
+        assert n_over == 0, f"max err {err}"
+
+
+@pytest.mark.parametrize("dh", [32, 96, 128, 512])
+def test_mlstm_decode_in_place_matches_plain(card, dh):
+    """The decode step written into the state passed in: the same tensors
+    come back, bit-equal to the call that writes new tensors, within the
+    bound of the plain decode step and of the sequential recurrence; one
+    counted launch a call."""
+    args = SMOKE.mlstm_inputs((3, 1, 2, dh, True), 11, card)
+    fresh = xops.mlstm_chunk(*args)
+    C, n = args[5].clone(), args[6].clone()
+    n0 = xops.mlstm_chunk.launches
+    got = xops.mlstm_chunk(*args[:5], C, n, out=(C, n))
+    torch.cuda.synchronize()
+    assert xops.mlstm_chunk.launches == n0 + 1
+    assert got[1] is C and got[2] is n
+    assert all(map(torch.equal, got, fresh))
+    Cw, nw = args[5].clone(), args[6].clone()
+    hw = mlstm_decode_ref(*args[:5], Cw, nw)
+    _hold_mlstm(got, (hw, Cw, nw))
+    _hold_mlstm(got, mlstm_seq(*args))
+
+
+@pytest.mark.parametrize("case", [(2, 200, 2, 128, True), (3, 1, 4, 512, True)],
+                         ids=str)
+def test_mlstm_two_calls_are_bit_equal(card, case):
+    """No atomics, fixed sums: the prefill's passes and the decode step give
+    the same bits twice."""
+    args = SMOKE.mlstm_inputs(case, 12, card)
+    a, b = xops.mlstm_chunk(*args), xops.mlstm_chunk(*args)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, a, b))
+
+
+# head dims at the state pass's 64-column blocks: under one block (32), one
+# block (64), one and a half (96, 160: the last block half empty, an odd
+# count of 64-wide slices between the two warpgroups) and eight (512)
+@pytest.mark.parametrize("dh", [32, 64, 96, 160, 512])
+def test_mlstm_kernel_at_the_column_block_edges(card, dh):
+    args = SMOKE.mlstm_inputs((2, 77, 2, dh, True), 13, card)
+    got = xops.mlstm_chunk(*args)
+    torch.cuda.synchronize()
+    _hold_mlstm(got, mlstm_chunk_ref(*args, xkernel.CHUNK))
+    _hold_mlstm(got, mlstm_seq(*args))
+
+
+def test_mlstm_out_in_place_only_at_decode(card):
+    args = SMOKE.mlstm_inputs((2, 8, 2, 64, True), 14, card)
+    with pytest.raises(ValueError, match="in place"):
+        xops.mlstm_chunk(*args, out=(args[5], args[6]))
+    C, n = torch.empty_like(args[5]), torch.empty_like(args[6])
+    got = xops.mlstm_chunk(*args, out=(C, n))
+    assert got[1] is C and got[2] is n
+
+
+def test_decode_writes_the_mlstm_state_into_the_cache(card, monkeypatch):
+    """xlstm-350m SMOKE on the card: a decode step's mLSTM blocks return
+    the cache's own C and n (written in place), so the stack copies no
+    mLSTM leaf back; the first layer's new state (the same inputs on both
+    routes) within the bound of the plain route's."""
+    cfg = get_smoke("xlstm-350m")
+    run = RunConfig(remat_policy="none", decode_budget=6)
+    params = lm.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.arange(16, device=card).reshape(2, 8) % cfg.vocab
+    _, cache = lm.prefill(cfg, run, params, {"tokens": toks})
+    plain = lm.tree_map(torch.clone, cache)
+    copied = {}  # the leaves of each block's state, those copied back
+    write_back = lm._write_back
+
+    def recording(bc, new):
+        kind = "mlstm" if set(new) == {"C", "n"} else "other"
+        copied.setdefault(kind, []).append(
+            [leaf for leaf, t in new.items() if t is not bc[leaf]])
+        write_back(bc, new)
+
+    monkeypatch.setattr(lm, "_write_back", recording)
+    lm.decode_step(cfg, run, params, cache, toks[:, :1], 8)
+    assert copied["mlstm"] == [[], [], []]  # three mLSTM blocks, no copy
+    assert copied["other"] == [["c", "n", "m", "h"]]  # the sLSTM's state
+    monkeypatch.setattr(rec, "mlstm_chunk", SMOKE.plain_mlstm)
+    lm.decode_step(cfg, run, params, plain, toks[:, :1], 8)
+    for leaf in ("C", "n"):
+        got = cache["tiles"]["b0"][leaf][0]
+        want = plain["tiles"]["b0"][leaf][0]
+        _hold_mlstm((got,), (want,))
 
 
 def test_serve_engine_runs_the_mlstm_kernel(card):
