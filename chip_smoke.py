@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent OLD_MEGASTEP_CU]
+
+(``--parent``: an earlier design of the megastep kernel, one thread a
+lane, built from that source and timed in turns with this one on each
+census at PARENT_BLOCK lanes a block; optional.)
 
 The main paths, each driven through the entry points a user calls, with
 every kernel launch counted from 0 just before and read just after:
@@ -48,15 +52,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    count of ``HGMMA`` instructions in their SASS (``cuobjdump -sass``);
    ``mlstm_build``: the mLSTM kernels' registers, spills, shared memory
    and threads, and the ``HGMMA`` count of each (the scores and state
-   passes must have them; no kernel may spill);
+   passes must have them; no kernel may spill); ``megastep_build``: the
+   megastep kernel's registers, spills and stack frame (of the kernel
+   and of every function it calls), its local memory and the most lanes
+   a block its registers allow (a spill or any local memory fails);
 2. ``kernel_vs_plain``: megastep vs its plain PyTorch version on the card,
-   one chunk at chunk 1, 8 and 128 and blocks 32 and 96, every leaf bit
-   for bit — from the emulation-off census and seeded random states, from
+   one chunk at chunk 1, 8 and 128 and 3 and 4 lanes a block (one warp a
+   lane; 500 lanes leave a ragged block at 3), every leaf bit for bit — from the emulation-off census and seeded random states, from
    the default census and seeded random states with random guest-kernel
    tables, and from traced carries with random per-lane policies;
 3. ``main_path``: the default census to halt through the kernel, held leaf
    for leaf against the plain version to halt and against the JAX
-   package's pinned counts and digest; kernel, driver and plain times;
+   package's pinned counts and digest; kernel, driver and plain times,
+   lane-steps a second, the host's gap a chunk; with ``--parent`` the
+   earlier design's kernel time in turns with this one's (also in 4 and
+   6);
 4. ``census_emul_off``: the emulation-off census (K1) through the kernel,
    against its pinned counts, and through the plain version;
 5. ``churn``: the 400-lane file-churn census with emulation on and with
@@ -117,11 +127,13 @@ Needs one card; with none it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -237,6 +249,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12      # the card's float32 rate; its int64 rate is lower
 OPS_PER_STEP = 128         # integer operations in one step's common path
 SMALL_WORDS = 173          # carry words of a lane but mem and k_ino_data
+CHECK_BLOCKS = (3, 4)      # lanes a block in kernel_vs_plain
+PARENT_BLOCK = 32          # the one-thread-a-lane design's lanes a block
+SPIN_CYCLES = 20_000_000   # ~10 ms of spin: the host queues launches behind it
 REC_BYTES = 8 * fleet.REC_WORDS  # one trace ring row
 HIST_BUMP_BYTES = 16       # one histogram word read and written
 # a traced lane's policy rows (int32 action + int64 arg a slot), read once,
@@ -874,26 +889,74 @@ def plain_run_to_halt(imgs, ids, s, chunk, tr=None):
     return fleet._patch_fuel(s), tr, n
 
 
-def kernel_census_ms(pps, regs, chunks, *, dev, traced=False, reps=2):
+def kernel_census_ms(pps, regs, chunks, *, dev, traced=False, reps=2,
+                     lib=None, block=None):
     """The kernel's own time for a whole census: ``chunks`` launches back
-    to back (CUDA events) from a fresh pack, after a warm-up pass; these
-    launches are not counted.  Returns (best ms, all runs, final carry)."""
+    to back (CUDA events) from a fresh pack, after a warm-up pass; the
+    arguments are built once and the host queues the launches behind a
+    spin kernel, so no host gap is in the time; these launches are not
+    counted.  ``lib``/``block``: another build of the kernel (an earlier
+    design's) and its lanes a block.  Returns (best ms, all runs, final
+    carry)."""
     times, last = [], None
     for rep in range(reps + 1):
         imgs, ids, sk = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
         tk = fleet_trace(pps, device=dev) if traced else None
+        launch = mkernel.Launch(imgs, ids, sk, tk, chunk=CHUNK, lib=lib)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         for _ in range(chunks):
-            mkernel.megastep_chunk_cuda(imgs, ids, sk, tk, chunk=CHUNK)
+            launch(block)
         e1.record()
         torch.cuda.synchronize()
         if rep:
             times.append(e0.elapsed_time(e1))
         last = (fleet._patch_fuel(sk), tk)
     return min(times), times, last
+
+
+def census_in_turns(pps, regs, chunks, parent, *, dev, traced=False):
+    """The census through an earlier design's build (``parent``: its
+    library, at its lanes a block) and this one, in turns on one card:
+    parent, this, this, parent.  Returns ({"parent": ms runs, "this": ...},
+    the last carry of each)."""
+    runs, outs = {"parent": [], "this": []}, {}
+    for who in ("parent", "this", "this", "parent"):
+        lib, block = parent if who == "parent" else (None, None)
+        ms, _, out = kernel_census_ms(pps, regs, chunks, dev=dev,
+                                      traced=traced, reps=1, lib=lib,
+                                      block=block)
+        runs[who].append(ms)
+        outs[who] = out
+    return runs, outs
+
+
+def megastep_build_line(built, card, build_s) -> dict:
+    """The megastep kernel's ptxas report (registers, spills, stack frame
+    of the kernel and of each function it calls) and the runtime's view
+    (registers, local memory, the most lanes a block); raises on any spill
+    or any local memory (a register array indexed at run time lands
+    there)."""
+    lib, report = built
+    if not report:  # built before: compile once more for the report
+        with tempfile.TemporaryDirectory() as d:
+            _, report = nvcc.build("megastep", mkernel.SOURCE, Path(d),
+                                   {"megastep_consts.h":
+                                    mkernel.consts_header()})
+    funcs = nvcc.ptxas_functions(report)
+    info = mkernel.kernel_info()
+    bad = {k: v for k, v in funcs.items()
+           if v.get("spill_stores") or v.get("spill_loads") or v.get("stack")}
+    if bad or info["local_bytes"] or not funcs:
+        raise AssertionError(f"megastep kernel: spills or local memory: "
+                             f"{bad or funcs}, {info}")
+    return {"phase": "megastep_build", "card": card, "seconds": build_s,
+            "library": lib.name, "functions": funcs, "runtime": info,
+            "spill_bytes": 0, "local_bytes": 0,
+            "lanes_per_block_default": mkernel.DEFAULT_BLOCK}
 
 
 def census_bound_ms(out: MachineState, code_words: int, *,
@@ -1362,14 +1425,15 @@ def serve_rg_phase(dev, card) -> tuple:
         a, b, h0 = scan_inputs(shape, 10, dev)
         bnd, by = bound_ms(*scan_work(shape), torch.float32)
         per_shape[shape[1]] = {
-            "ms": cuda_ms(lambda: rops.rglru_scan(a, b, h0)),
+            "ms": device_ms(lambda: rops.rglru_scan(a, b, h0)),
+            "eager_ms": cuda_ms(lambda: rops.rglru_scan(a, b, h0)),
             "plain_ms": cuda_ms(lambda: rglru_scan_ref(a, b, h0), reps=3),
             "bound_ms": bnd, "bound_by": by}
     mix = {plen: 1 / (1 + SERVE_NEW), 1: SERVE_NEW / (1 + SERVE_NEW)}
     rows["rglru"] = {
         "launches": launches["rglru"],
         **{key: sum(w * per_shape[s][key] for s, w in mix.items())
-           for key in ("ms", "plain_ms", "bound_ms")},
+           for key in ("ms", "eager_ms", "plain_ms", "bound_ms")},
         "bound_by": "/".join(sorted({r["bound_by"]
                                      for r in per_shape.values()})),
         "library_ms": None}
@@ -1400,6 +1464,8 @@ def serve_rg_phase(dev, card) -> tuple:
             "kernel_ms": {"flash": rows["flash"]["ms"],
                           "rglru_prefill": per_shape[plen]["ms"],
                           "rglru_decode": per_shape[1]["ms"]},
+            "rglru_eager_ms": {"prefill": per_shape[plen]["eager_ms"],
+                               "decode": per_shape[1]["eager_ms"]},
             "flash_eager_ms": flash_eager_ms,
             "flash_library_ms": rows["flash"]["library_ms"],
             "rglru_bound_ms": {"prefill": per_shape[plen]["bound_ms"],
@@ -1667,14 +1733,15 @@ def serve_xlstm_phase(dev, card) -> tuple:
 
 
 def check_chunks(name, imgs, ids, start, tr, checks):
-    """One chunk at 1, 8 and 128 steps and blocks 32 and 96: the kernel
-    equals the plain version on every leaf.  Returns the largest error."""
+    """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
+    lanes leave a ragged last block at 3): the kernel equals the plain
+    version on every leaf.  Returns the largest error."""
     err = 0
     for chunk in (1, 8, 128):
         want = megastep_chunk_ref(imgs, ids, clone(start),
                                   None if tr is None else clone(tr),
                                   chunk=chunk)
-        for block in (32, 96):  # 500 % 32 and 500 % 96: ragged edges
+        for block in CHECK_BLOCKS:
             got = mops.megastep_chunk(imgs, ids, clone(start),
                                       None if tr is None else clone(tr),
                                       chunk=chunk, block=block)
@@ -1691,7 +1758,12 @@ def check_chunks(name, imgs, ids, start, tr, checks):
     return err
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="an earlier design's megastep.cu, timed in turns "
+                         "with this one on the census (optional)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1716,6 +1788,10 @@ def main() -> int:
     for mod in mods.values():
         mod.load_library()
     lib, report = built["megastep"]
+    parent = None
+    if args.parent:  # an earlier design, built from its source
+        parent = (mkernel.load_library(Path(args.parent).resolve()),
+                  PARENT_BLOCK)
     emit({"phase": "build", "card": card, "seconds": build_s,
           "library": lib.name, "ptxas": nvcc.ptxas_lines(report),
           "rglru_scan_library": built["rglru_scan"][0].name,
@@ -1760,6 +1836,7 @@ def main() -> int:
     emit({"phase": "attn_build", "card": card, "seconds": build_s,
           **attn_ptxas})
     emit(mlstm_build_line(built["mlstm_chunk"], card, build_s))
+    emit(megastep_build_line(built["megastep"], card, build_s))
 
     # 2. kernel vs plain, one chunk, on the card
     t0 = time.perf_counter()
@@ -1812,7 +1889,8 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain", "card": card, "lanes": B,
           "images": int(imgs.packed.shape[0]),
           "starts": [n for n, *_ in starts],
-          "chunks": [1, 8, 128], "blocks": [32, 96], "checks": len(checks),
+          "chunks": [1, 8, 128], "lanes_per_block": list(CHECK_BLOCKS),
+          "checks": len(checks),
           "mismatched_leaves": 0, "prepare_s": prep_s,
           "seconds": time.perf_counter() - t0})
 
@@ -1869,6 +1947,12 @@ def main() -> int:
                                                      dev=dev)
     if mismatched(sk, out):
         raise AssertionError("timed kernel run != main path")
+    turns_k3 = None
+    if parent:
+        turns_k3, outs = census_in_turns(pps_def, regs, chunks, parent,
+                                         dev=dev)
+        if mismatched(outs["parent"][0], out):
+            raise AssertionError("the earlier design's census != main path")
     grid = census_grid()
     churn_payload = sum(2 * CHURN_NBYTES * g[4] for g in grid
                         if g[3] == "churn")
@@ -1882,7 +1966,10 @@ def main() -> int:
           "path_s": path_s, "pack_s": pack_s, "driver_ms": driver_ms,
           "kernel_ms": kernel_ms_k3, "kernel_ms_runs": runs_k3,
           "device_idle_share": 1 - kernel_ms_k3 / driver_ms,
+          "host_gap_ms_per_chunk": (driver_ms - kernel_ms_k3) / launches_k3,
           "lane_steps_per_s": got["total_steps"] / (kernel_ms_k3 / 1e3),
+          "lanes_per_block": mkernel.DEFAULT_BLOCK,
+          "in_turns_with_parent_ms": turns_k3,
           "plain_ms": plain_ms_k3, "plain_chunks": plain_chunks,
           "bound_ms": bound_k3, "bound_by": by_k3, "bound_bytes": nbytes,
           "bound_ops": nops, "emul_payload_bytes": churn_payload,
@@ -1915,10 +2002,18 @@ def main() -> int:
     err_by["K1"] = max(err_by["K1"], max_abs_err(plain_off, out_off))
     kernel_ms_k1, runs_k1, _ = kernel_census_ms(pps_off, regs, chunks_off,
                                                 dev=dev)
+    turns_k1 = None
+    if parent:
+        turns_k1, outs = census_in_turns(pps_off, regs, chunks_off, parent,
+                                         dev=dev)
+        if mismatched(outs["parent"][0], out_off):
+            raise AssertionError("the earlier design's K1 census differs")
     (bound_k1, by_k1), _, _ = census_bound_ms(out_off, cw)
     emit({"phase": "census_emul_off", "card": card, **got_off,
           "launches": launches_k1,
           "kernel_ms": kernel_ms_k1, "kernel_ms_runs": runs_k1,
+          "lane_steps_per_s": got_off["total_steps"] / (kernel_ms_k1 / 1e3),
+          "in_turns_with_parent_ms": turns_k1,
           "plain_ms": plain_ms_k1, "bound_ms": bound_k1, "bound_by": by_k1,
           "mismatched_leaves": 0})
 
@@ -1987,6 +2082,13 @@ def main() -> int:
     t_un2, _, _ = kernel_census_ms(pps_def, regs, chunks, dev=dev, reps=1)
     if mismatched(sk, out_t) or mismatched(tk, tr_t):
         raise AssertionError("timed traced run != entry point")
+    turns_k2 = None
+    if parent:
+        turns_k2, outs = census_in_turns(pps_def, regs, chunks, parent,
+                                         dev=dev, traced=True)
+        if (mismatched(outs["parent"][0], out_t)
+                or mismatched(outs["parent"][1], tr_t)):
+            raise AssertionError("the earlier design's traced census differs")
     records = int(count.sum())
     (bound_k2, by_k2), _, _ = census_bound_ms(
         out_t, cw, emul_payload=churn_payload, records=records,
@@ -1996,6 +2098,8 @@ def main() -> int:
           "records_max_lane": int(count.max()), **verdicts,
           "trace_sha256": digest(tr_t),
           "kernel_ms": kernel_ms_k2, "kernel_ms_runs": runs_k2,
+          "lane_steps_per_s": int(out_t.icount.sum()) / (kernel_ms_k2 / 1e3),
+          "in_turns_with_parent_ms": turns_k2,
           "untraced_kernel_ms": [t_un1, t_un2],
           "traced_over_untraced": kernel_ms_k2 / min(t_un1, t_un2),
           "plain_ms": plain_ms_k2, "bound_ms": bound_k2, "bound_by": by_k2,

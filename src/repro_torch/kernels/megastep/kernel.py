@@ -35,7 +35,7 @@ from .. import nvcc
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "megastep.cu"
 BUILD_DIR = _HERE / "build"
-DEFAULT_BLOCK = 32  # threads (= lanes) per block: 500 lanes -> 16 blocks
+DEFAULT_BLOCK = 4  # lanes (one warp each) a block: 500 lanes -> 125 blocks
 
 
 def consts_header() -> str:
@@ -90,11 +90,13 @@ def consts_header() -> str:
     return "\n".join(lines) + "\n"
 
 
-def build() -> tuple[Path, str]:
+def build(source: Path = SOURCE) -> tuple[Path, str]:
     """Compile the kernel library if it is not built yet.  Returns the
     library path and the compiler's report (``-Xptxas -v``: registers,
-    shared memory, spills; empty when the library was already there)."""
-    return nvcc.build("megastep", SOURCE, BUILD_DIR,
+    shared memory, spills; empty when the library was already there).
+    ``source`` is another copy of the kernel with the same C interface
+    (``scripts/torch_megastep_study.py`` builds an earlier design's)."""
+    return nvcc.build("megastep", source, BUILD_DIR,
                       {"megastep_consts.h": consts_header()})
 
 
@@ -108,20 +110,42 @@ class _Args(ctypes.Structure):
         + [("leaf", ctypes.c_void_p * len(MachineState._fields)),
            ("tleaf", ctypes.c_void_p * len(TraceState._fields)),
            ("n_lanes", ctypes.c_int64), ("chunk", ctypes.c_int64),
-           ("trace_cap", ctypes.c_int64)])
+           ("trace_cap", ctypes.c_int64), ("uop", ctypes.c_void_p)])
 
 
 @functools.lru_cache(maxsize=None)
-def load_library():
+def load_library(source: Path = SOURCE):
     """Build (at first use) and load the kernel library."""
-    path, _ = build()
+    path, _ = build(source)
     lib = ctypes.CDLL(str(path))
     fn = lib.megastep_launch
     # every pointer and the stream as c_void_p: ctypes would cut them to
     # 32-bit ints otherwise
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if hasattr(lib, "megastep_info"):  # an earlier design's build has none
+        info = lib.megastep_info
+        info.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        info.restype = ctypes.c_int
+        dec = lib.megastep_decode
+        dec.argtypes = [ctypes.POINTER(_Args), ctypes.c_int64,
+                        ctypes.c_void_p]
+        dec.restype = ctypes.c_int
     return lib
+
+
+def kernel_info(lib=None) -> dict:
+    """The runtime's view of the kernel: registers a thread, local memory
+    a thread, and the most lanes a block (32 threads a lane) that its
+    registers allow."""
+    lib = load_library() if lib is None else lib
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.megastep_info(*(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"megastep_info failed: CUDA error {rc}")
+    regs, local, threads = (v.value for v in vals)
+    return {"registers": regs, "local_bytes": local,
+            "max_threads": threads, "max_lanes_per_block": threads // 32}
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,33 +157,58 @@ def device_tables(device: torch.device):
     return tuple(opspec.spec_tables(device)) + syscalls
 
 
-def megastep_chunk_cuda(imgs: FleetImages, ids: torch.Tensor,
-                        s: MachineState, tr: Optional[TraceState] = None, *,
-                        chunk: int, block: Optional[int] = None) -> None:
-    """Launch the kernel on PyTorch's current stream: ``chunk`` steps of
-    every lane, the carry (and the trace carry ``tr``, when given) updated
-    in place.  The caller has validated the operands
-    (:func:`repro_torch.kernels.megastep.ops.megastep_chunk`)."""
-    dev = s.pc.device
-    block = DEFAULT_BLOCK if block is None else int(block)
-    lib = load_library()
-    args = _Args()
-    args.packed = imgs.packed.data_ptr()
-    args.imm = imgs.imm.data_ptr()
-    args.ids = ids.data_ptr()
-    names = [f[0] for f in _Args._fields_[3:20]]
-    for name, t in zip(names, device_tables(dev)):
-        setattr(args, name, t.data_ptr())
-    for i, leaf in enumerate(s):
-        args.leaf[i] = leaf.data_ptr()
-    if tr is not None:
-        for i, leaf in enumerate(tr):
-            args.tleaf[i] = leaf.data_ptr()
-    args.n_lanes = int(s.pc.shape[0])
-    args.chunk = int(chunk)
-    args.trace_cap = 0 if tr is None else int(tr.buf.shape[2])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.megastep_launch(ctypes.byref(args), block, stream)
-    if rc != 0:
-        raise RuntimeError(f"megastep kernel launch failed: CUDA error {rc}")
+class Launch:
+    """The kernel's arguments for one carry, and its decode table (every
+    code word with its op-spec word, built here by one launch), made once
+    and launched as often as the caller likes: the kernel updates the
+    carry in place, so the pointers stay valid while the caller keeps the
+    same tensors (the run and span drivers launch one ``Launch`` a chunk).
+    ``lib`` is another build of the kernel with the same C interface
+    (default: this package's; an earlier design's build has no decode
+    table and reads ``packed``)."""
+
+    def __init__(self, imgs: FleetImages, ids: torch.Tensor, s: MachineState,
+                 tr: Optional[TraceState] = None, *, chunk: int, lib=None):
+        self.device = s.pc.device
+        self.lib = load_library() if lib is None else lib
+        args = _Args()
+        args.packed = imgs.packed.data_ptr()
+        args.imm = imgs.imm.data_ptr()
+        args.ids = ids.data_ptr()
+        names = [f[0] for f in _Args._fields_[3:20]]
+        for name, t in zip(names, device_tables(self.device)):
+            setattr(args, name, t.data_ptr())
+        for i, leaf in enumerate(s):
+            args.leaf[i] = leaf.data_ptr()
+        if tr is not None:
+            for i, leaf in enumerate(tr):
+                args.tleaf[i] = leaf.data_ptr()
+        args.n_lanes = int(s.pc.shape[0])
+        args.chunk = int(chunk)
+        args.trace_cap = 0 if tr is None else int(tr.buf.shape[2])
+        self.args = args
+        self.ref = ctypes.byref(args)
+        self.uop = torch.empty_like(imgs.packed)
+        args.uop = self.uop.data_ptr()
+        if hasattr(self.lib, "megastep_decode"):
+            with torch.cuda.device(self.device):
+                stream = torch.cuda.current_stream(self.device).cuda_stream
+                rc = self.lib.megastep_decode(self.ref, self.uop.numel(),
+                                              stream)
+            if rc != 0:
+                raise RuntimeError(f"megastep decode launch failed: CUDA "
+                                   f"error {rc}")
+        # keep the operands alive as long as their pointers are held
+        self._keep = (imgs, ids, s, tr)
+
+    def __call__(self, block: Optional[int] = None) -> None:
+        """One launch on PyTorch's current stream, ``block`` lanes a block
+        (default ``DEFAULT_BLOCK``); raises if the card refuses it."""
+        block = DEFAULT_BLOCK if block is None else int(block)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = self.lib.megastep_launch(self.ref, block, stream)
+        if rc != 0:
+            raise RuntimeError(f"megastep kernel launch failed: CUDA error "
+                               f"{rc} (block={block} lanes of 32 threads; "
+                               f"see kernel_info() for the most a block)")

@@ -9,9 +9,10 @@ on the CPU).
 
 :func:`run` and :func:`span` mirror the JAX package's ``jitted_run`` /
 ``jitted_span`` and their traced twins: they check the operands once,
-then loop chunks while any lane is alive (one host sync per chunk);
-``run`` patches ``HALT_FUEL`` afterwards, ``span`` stops after at most
-``span`` chunks and does not.
+build the kernel's arguments once (the carry is updated in place, so its
+pointers hold), then loop chunks while any lane is alive (one host sync
+per chunk); ``run`` patches ``HALT_FUEL`` afterwards, ``span`` stops
+after at most ``span`` chunks and does not.
 """
 from __future__ import annotations
 
@@ -68,8 +69,8 @@ def _validate(imgs: F.FleetImages, ids, s: MachineState,
     _check_tensor("ids", ids, torch.int32, (B,), dev)
     if int(chunk) < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if block is not None and not 1 <= int(block) <= 1024:
-        raise ValueError(f"block must be in [1, 1024], got {block}")
+    if block is not None and not 1 <= int(block) <= 32:
+        raise ValueError(f"block must be in [1, 32] lanes, got {block}")
     if tr is None:
         return
     if not isinstance(tr, F.TraceState):
@@ -102,17 +103,19 @@ def megastep_chunk(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
     Bit-identical to ``chunk`` iterations of the JAX package's
     ``fleet._step_core``, with the guest-kernel service on the lanes that
     have it enabled and, with ``tr``, the trace ring and policy gate.
-    ``block`` is the kernel's threads (lanes) per block; the plain version
-    ignores it.  Returns ``s``, or ``(s, tr)`` with a trace carry.
+    ``block`` is the kernel's lanes per block (one warp a lane; the JAX
+    package's meaning); the plain version ignores it.  Returns ``s``, or
+    ``(s, tr)`` with a trace carry.
     """
     _validate(imgs, ids, s, tr, chunk, block)
     _check_ids(imgs, ids)
     return _chunk(imgs, ids, s, tr, int(chunk), block)
 
 
-def _chunk(imgs, ids, s, tr, chunk, block):
+def _chunk(imgs, ids, s, tr, chunk, block, launch=None):
     """One chunk on checked operands: the plain version on the CPU, one
-    counted kernel launch on the card."""
+    counted kernel launch on the card (``launch``: the kernel's arguments
+    for this carry, when the caller built them already)."""
     if s.pc.device.type == "cpu":
         out = megastep_chunk_ref(imgs, ids, s, tr, chunk=chunk)
         pairs = zip(s, out) if tr is None else zip(
@@ -121,10 +124,19 @@ def _chunk(imgs, ids, s, tr, chunk, block):
             if src is not dst:
                 dst.copy_(src)
     else:
-        from .kernel import megastep_chunk_cuda  # lazy: builds at first use
-        megastep_chunk_cuda(imgs, ids, s, tr, chunk=chunk, block=block)
+        if launch is None:
+            launch = _launch(imgs, ids, s, tr, chunk)
+        launch(block)
         megastep_chunk.launches += 1
     return s if tr is None else (s, tr)
+
+
+def _launch(imgs, ids, s, tr, chunk):
+    """The kernel's arguments for this carry on the card, else None."""
+    if s.pc.device.type == "cpu":
+        return None
+    from .kernel import Launch  # lazy: builds at first use
+    return Launch(imgs, ids, s, tr, chunk=chunk)
 
 
 megastep_chunk.launches = 0
@@ -137,8 +149,9 @@ def run(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
     Returns ``s``, or ``(s, tr)`` with a trace carry."""
     _validate(imgs, ids, s, tr, chunk, block)
     _check_ids(imgs, ids)
+    launch = _launch(imgs, ids, s, tr, int(chunk))
     while bool(F._alive(s).any()):
-        _chunk(imgs, ids, s, tr, int(chunk), block)
+        _chunk(imgs, ids, s, tr, int(chunk), block, launch)
     s.halted.copy_(F._patch_fuel(s).halted)
     return s if tr is None else (s, tr)
 
@@ -150,8 +163,9 @@ def span(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
     HALT_FUEL patch.  Returns ``s``, or ``(s, tr)`` with a trace carry."""
     _validate(imgs, ids, s, tr, chunk, block)
     _check_ids(imgs, ids)
+    launch = _launch(imgs, ids, s, tr, int(chunk))
     k = 0
     while k < span and bool(F._alive(s).any()):
-        _chunk(imgs, ids, s, tr, int(chunk), block)
+        _chunk(imgs, ids, s, tr, int(chunk), block, launch)
         k += 1
     return s if tr is None else (s, tr)

@@ -93,6 +93,33 @@ def ptxas_table(report: str) -> dict:
     return out
 
 
+def ptxas_functions(report: str) -> dict:
+    """{function (mangled name): {"stack", "spill_stores", "spill_loads"}
+    and, for a kernel, "registers"} for every function in a build report:
+    the kernels and each device function they call that was not inlined."""
+    out, name, entry = {}, None, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name is not None:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
 def sass_counts(lib: Path, opcode: str) -> dict:
     """{kernel (mangled name): instructions named ``opcode``} in a built
     library's SASS (``cuobjdump -sass``, beside nvcc in the toolkit)."""

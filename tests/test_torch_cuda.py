@@ -85,8 +85,8 @@ def _assert_equal(a, b, what):
 @pytest.mark.parametrize("seed", [None, 0, 1])
 def test_kernel_matches_plain(census_every_tenth, chunk, seed):
     """One chunk from the initial state and from seeded random states
-    (random guest-kernel tables too when emulation is on), at a block size
-    with a ragged edge and one without."""
+    (random guest-kernel tables too when emulation is on), at 1, 3 and 4
+    lanes a block (50 lanes: 3 and 4 leave a ragged last block)."""
     pps, _, imgs, ids, s0 = census_every_tenth
     if seed is not None:
         rng = np.random.default_rng(seed)
@@ -96,7 +96,7 @@ def test_kernel_matches_plain(census_every_tenth, chunk, seed):
             leaves = SMOKE.scramble_kern(leaves, code, rng)
         s0 = interop.state_from_numpy(leaves, s0.pc.device)
     want = megastep_chunk_ref(imgs, ids, _clone(s0), chunk=chunk)
-    for block in (16, 32, 128):
+    for block in (1, 3, 4):
         got = mops.megastep_chunk(imgs, ids, _clone(s0), chunk=chunk,
                                   block=block)
         torch.cuda.synchronize()
@@ -128,13 +128,65 @@ def test_traced_kernel_matches_plain(census_every_tenth, chunk, seed):
         tr0 = interop.trace_from_numpy(SMOKE.scramble_trace(
             B, int(tr0.buf.shape[2]), rng, pols), dev)
     want = megastep_chunk_ref(imgs, ids, _clone(s0), _clone(tr0), chunk=chunk)
-    for block in (16, 32):
+    for block in (1, 3, 4):
         got = mops.megastep_chunk(imgs, ids, _clone(s0), _clone(tr0),
                                   chunk=chunk, block=block)
         torch.cuda.synchronize()
         for w, g in zip(want, got):
             _assert_equal(w, g, f"traced chunk={chunk} seed={seed} "
                                 f"block={block}")
+
+
+def test_kernel_on_more_lanes_than_schedulers(card):
+    """1,000 lanes (the census twice, the second copy scrambled, random
+    guest-kernel tables too): more warps than the card's 528 schedulers;
+    one chunk of 128 steps at the default block, then 8 more at 3 lanes a
+    block, equal to the plain version on every leaf."""
+    pps, regs = SMOKE.census_processes()
+    pps, regs = pps + pps, regs + regs
+    imgs, ids, s0 = pack_fleet(pps, fuel=SMOKE.FUEL, regs=regs, device=card)
+    leaves = interop.state_to_numpy(s0)
+    rng = np.random.default_rng(7)
+    code = SMOKE.code_of(pps)
+    mixed = SMOKE.scramble_kern(SMOKE.scramble(leaves, code, rng), code, rng)
+    half = len(pps) // 2
+    for f in leaves:
+        leaves[f] = np.concatenate([leaves[f][:half], mixed[f][half:]])
+    s0 = interop.state_from_numpy(leaves, card)
+    got = _clone(s0)
+    for chunk, block in ((128, None), (8, 3)):
+        want = megastep_chunk_ref(imgs, ids, _clone(got), chunk=chunk)
+        got = mops.megastep_chunk(imgs, ids, got, chunk=chunk, block=block)
+        torch.cuda.synchronize()
+        _assert_equal(want, got, f"1000 lanes chunk={chunk} block={block}")
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_two_kernel_calls_are_bit_equal(census_every_tenth, traced):
+    """Two calls from one (scrambled) state give the same carry, bit for
+    bit: no race between a lane's threads or between lanes."""
+    pps, _, imgs, ids, s0 = census_every_tenth
+    dev = s0.pc.device
+    rng = np.random.default_rng(8)
+    code = SMOKE.code_of(pps)
+    leaves = SMOKE.scramble(interop.state_to_numpy(s0), code, rng)
+    if int(s0.k_enabled.sum()):
+        leaves = SMOKE.scramble_kern(leaves, code, rng)
+    s0 = interop.state_from_numpy(leaves, dev)
+    tr0 = None
+    if traced:
+        B = int(s0.pc.shape[0])
+        tr0 = interop.trace_from_numpy(SMOKE.scramble_trace(
+            B, 16, rng, SMOKE.random_policies(B, rng, kill_lane=2)), dev)
+    outs = []
+    for _ in range(2):
+        out = mops.megastep_chunk(imgs, ids, _clone(s0),
+                                  None if tr0 is None else _clone(tr0),
+                                  chunk=128)
+        torch.cuda.synchronize()
+        outs.append(out if traced else (out,))
+    for a, b in zip(*outs):
+        _assert_equal(a, b, "two calls")
 
 
 def test_run_on_card_matches_cpu(census_every_tenth, card):

@@ -234,7 +234,7 @@ def test_kernel_c_interface_matches_wrapper():
         r"\*\s*(\w+)(?:\[N_(?:TRACE_)?LEAVES\])?;|int64_t (\w+);", body)
     c_names = [a or b for a, b in c_fields]
     assert c_names == [f[0] for f in mkernel._Args._fields_]
-    assert ctypes.sizeof(mkernel._Args) == 8 * (20 + 34 + 10 + 3)
+    assert ctypes.sizeof(mkernel._Args) == 8 * (20 + 34 + 10 + 3 + 1)
     header = mkernel.consts_header()
     defined = set(re.findall(r"#define (\w+)", header))
     code = re.sub(r"//[^\n]*", "", src)
