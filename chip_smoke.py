@@ -19,6 +19,11 @@ every kernel launch counted from 0 just before and read just after:
   variants of the TPU kernel, each driven by a path of its own: K1 (the
   census with emulation off), K3 (the default census) and K2 (the default
   census traced, with the policy gate).
+* The census's other drivers, around the same kernel: the traced census
+  streamed (``fleet.run_fleet_stream`` into a ``TraceStream``), the
+  census through a 128-lane pool (``admit_lanes``, ``restore_lanes``, a
+  ``FleetImageTable``, ``run_fleet_span``) and the census compacted
+  (``run_fleet_prepared(compact=True)``), untraced (K3) and traced (K2).
 * LM serving: ``repro_torch.serve.engine.ServeEngine`` over qwen3-1.7b at
   full width (28 layers, d_model 2048, random weights from a seeded
   ``torch.Generator``): 8 prompts of 64..512 tokens, 32 new tokens each —
@@ -121,13 +126,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     kernel's chunk of 64; the JAX model's 256 at prefill and 1 at decode;
     the sequential recurrence), which 24 random-weight layers put at
     4-11 %;
-15. the kernel table line, the card line, then the device line (last).
+15. ``streamed``: the default census traced through ``run_fleet_stream``
+    into a retaining ``TraceStream`` (cap 64, chunk 128: one chunk a
+    span), against the census pin, the JAX package's streamed-record
+    count, drops (0) and digest, and phase 6's carry (lifetime counts,
+    histograms, each lane's last min(count, 64) records); the driver's ms
+    and the host's ms in flips and ``push_block``, beside the traced
+    fixed-width driver, in turns;
+16. ``admission``: the default census through a 128-lane pool and a
+    32-row ``FleetImageTable`` (``admit_lanes``, spans of 512 steps
+    through ``run_fleet_span``, harvest with ``finish_halt_codes``; every
+    fourth span 8 running lanes checkpointed, their slots given to queued
+    processes, the checkpoints put back later with ``restore_lanes``),
+    untraced (K3) and traced (K2): every harvested lane equal to phase 3's
+    and phase 6's lanes, every admitted ring empty;
+17. ``compact``: ``run_fleet_prepared(compact=True)`` on the default
+    census, untraced and traced, against the census pins and the JAX
+    package's occupancy ledgers; kernel and driver ms, compacted against
+    fixed width, in turns;
+18. the kernel table line (the megastep's launches on every path), the
+    card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import math
@@ -145,8 +170,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import (  # noqa: E402
-    HookConfig, Mechanism, fleet, interop, pack_fleet, prepare, programs,
-    run_fleet_prepared)
+    FleetImageTable, HookConfig, Mechanism, fleet, initial_state, interop,
+    pack_fleet, precompile_compact, prepare, programs, run_fleet_prepared,
+    run_fleet_span)
 from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.hookcfg import PolicyRule  # noqa: E402
@@ -175,6 +201,7 @@ from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
 from repro_torch.trace import recorder  # noqa: E402
+from repro_torch.trace.stream import TraceStream  # noqa: E402
 
 # -- the census deployment (a copy of benchmarks/collective_hook_overhead.py)
 FUEL = 10_000_000
@@ -232,6 +259,23 @@ CENSUS_DEFAULT_SHA256 = (
 TRACED_EXPECTED = {"records_total": 263_036, "deny": 0, "emul": 0, "kill": 0}
 TRACED_SHA256 = (
     "f1897933d161359b5aa5aec31df4ff583e529837bfdceb76a9d78997b159a51b")
+# The default census traced and streamed (cap 64, chunk 128: one chunk a
+# span) into a retaining TraceStream: the records it received, its drops
+# and flips, and the sha256 of every streamed record (stream_digest):
+STREAMED_EXPECTED = {"records_seen": 263_036, "records_dropped": 0,
+                     "flips": 65}
+STREAMED_SHA256 = (
+    "f9fbf1382a101793696a5e5794353fd6e07aff48318df9b8fc44a2ecea67d5b1")
+# The default census compacted (HookConfig's ladder: 500, then 256 down to
+# 8 lanes, hysteresis 0.125, spans of 8 chunks): its occupancy ledger,
+# untraced and traced:
+COMPACT_STATS = {"ladder": [500, 256, 128, 64, 32, 16, 8], "interval": 1024,
+                 "dispatches": 9,
+                 "compactions": [{"from": 500, "to": 8, "live": 2}],
+                 "final_bucket": 8, "dispatched_lane_steps": 4_097_024,
+                 "useful_steps": 3_603_972, "occupancy": 0.8797,
+                 "wasted_lane_steps": 493_052}
+COMPACT_STATS_TRACED = COMPACT_STATS  # tracing changes no lane's steps
 # The churn census (benchmarks/results/BENCH_emul.json):
 CHURN_EXPECTED = {
     "emul": {"lanes": 400, "total_steps": 2_557_520, "emul_served_total":
@@ -842,6 +886,17 @@ def digest(tree) -> str:
     for leaf in tree:
         a = leaf.cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
         h.update(np.ascontiguousarray(np.asarray(a), np.int64).tobytes())
+    return h.hexdigest()
+
+
+def stream_digest(stream, n_keys: int) -> str:
+    """sha256 of every record a trace stream holds, keys 0..n_keys-1 in
+    order, each key's records in sequence order (8 int64 words each)."""
+    h = hashlib.sha256()
+    for key in range(n_keys):
+        got = stream.export_key(key)
+        if got is not None:
+            h.update(np.ascontiguousarray(got["rows"], np.int64).tobytes())
     return h.hexdigest()
 
 
@@ -1732,6 +1787,294 @@ def serve_xlstm_phase(dev, card) -> tuple:
     return line, {"mlstm": row}
 
 
+class Timed:
+    """Wraps a callable and sums the host seconds spent in it."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+class LaunchTimer:
+    """Inside the ``with``, every megastep launch gets a pair of CUDA events
+    around it; ``ms()`` sums their device times (the kernel's own time in
+    a run whose host syncs leave gaps between launches)."""
+
+    def __enter__(self):
+        self.pairs = []
+        self._orig = orig = mkernel.Launch.__call__
+
+        def timed(launch, block=None):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            orig(launch, block)
+            e1.record()
+            self.pairs.append((e0, e1))
+
+        mkernel.Launch.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        mkernel.Launch.__call__ = self._orig
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def admission_run(pps, regs, *, pool, table_rows, steps, dev, traced=False,
+                  chunk=CHUNK, preempt_every=4, preempt_n=8):
+    """Continuous batching over a pool of ``pool`` lanes: the processes
+    ``pps`` queue for the pool, their images go into a
+    ``FleetImageTable`` of ``table_rows`` rows, free slots take queued
+    processes through ``admit_lanes`` (fresh) or ``restore_lanes``
+    (checkpoints), each span is one ``run_fleet_span`` of ``steps`` steps,
+    and halted lanes are harvested with ``finish_halt_codes`` into a
+    carry in process order.  Every ``preempt_every``-th span, while new
+    processes wait, ``preempt_n`` running lanes are checkpointed (copies
+    of ``unstack_state``/``unstack_trace``), their slots given to the
+    queue, and the checkpoints queued behind it.  Traced, every admitted
+    lane's ring is checked empty before its first span.  Returns (the
+    harvested states, the harvested trace carry or None, counters)."""
+    n = len(pps)
+    cap = max(pp.cfg.trace_cap for pp in pps)
+    table = FleetImageTable(table_rows, device=dev)
+    s = fleet.make_halted_states(pool, device=dev)
+    tr = fleet.make_empty_trace(pool, cap, device=dev) if traced else None
+    ids_host = np.zeros(pool, np.int32)
+    ids = torch.from_numpy(ids_host).to(dev)
+    out_s = fleet.make_halted_states(n, device=dev)
+    out_t = fleet.make_empty_trace(n, cap, device=dev) if traced else None
+    queue = collections.deque(("new", i, None) for i in range(n))
+    new_left = n
+    proc = [-1] * pool   # the process in each slot
+    row = [-1] * pool    # its image row
+    stats = {"spans": 0, "admitted": 0, "restored": 0, "preempted": 0,
+             "harvested": 0, "rings_checked_empty": 0}
+    while queue or max(proc) >= 0:
+        admit, restore = [], []
+        for b in range(pool):
+            if proc[b] >= 0 or not queue:
+                continue
+            kind, i, ck = queue.popleft()
+            proc[b], row[b] = i, table.admit(pps[i])
+            ids_host[b] = row[b]
+            (admit if kind == "new" else restore).append((b, i, ck))
+            new_left -= kind == "new"
+        if admit:
+            slots = [b for b, _, _ in admit]
+            fleet.admit_lanes(
+                s, slots, [initial_state(pps[i], fuel=FUEL, regs=regs[i])
+                           for _, i, _ in admit],
+                trace=tr, policies=[None] * len(slots) if traced else None)
+            if traced:
+                idx = torch.tensor(slots, device=dev)
+                if bool(tr.buf[idx].any() | tr.count[idx].any()
+                        | tr.hist[idx].any()):
+                    raise AssertionError("an admitted lane's ring is not "
+                                         "empty")
+                stats["rings_checked_empty"] += len(slots)
+            stats["admitted"] += len(admit)
+        if restore:
+            fleet.restore_lanes(
+                s, [b for b, _, _ in restore], [ck[0] for _, _, ck in restore],
+                trace=tr, lane_traces=[ck[1] for _, _, ck in restore]
+                if traced else None)
+            stats["restored"] += len(restore)
+        ids.copy_(torch.from_numpy(ids_host))
+        run_fleet_span(table.images, s, ids, steps=steps, chunk=chunk,
+                       trace=tr, device=dev)
+        stats["spans"] += 1
+        halted, icount, fuel = (x.cpu().numpy() for x in torch.stack(
+            [s.halted, s.icount, s.fuel]))
+        alive = (halted == fleet.RUNNING) & (icount < fuel)
+        done = [b for b in range(pool) if proc[b] >= 0 and not alive[b]]
+        if done:
+            src = torch.tensor(done, device=dev)
+            dst = torch.tensor([proc[b] for b in done], device=dev)
+            for o, x in zip((*out_s, *(out_t or ())), (*s, *(tr or ()))):
+                o.index_copy_(0, dst, x.index_select(0, src))
+            codes = fleet.finish_halt_codes(halted[done], icount[done],
+                                            fuel[done])
+            out_s.halted.index_copy_(0, dst, torch.from_numpy(codes).to(dev))
+            for b in done:
+                table.release(row[b])
+                proc[b] = -1
+            stats["harvested"] += len(done)
+        if stats["spans"] % preempt_every == 0 and new_left:
+            for b in [b for b in range(pool) if proc[b] >= 0][:preempt_n]:
+                ck = (clone(fleet.unstack_state(s, b)),
+                      clone(fleet.unstack_trace(tr, b)) if traced else None)
+                queue.append(("restore", proc[b], ck))
+                table.release(row[b])
+                proc[b] = -1
+                stats["preempted"] += 1
+    stats.update(admissions=table.admissions, dedup_hits=table.dedup_hits)
+    return out_s, out_t, stats
+
+
+def streamed_phase(pps, regs, tr_ref, dev, card) -> dict:
+    """The default census traced (cap 64, all-ALLOW) through
+    ``run_fleet_stream`` (one chunk a span: chunk 128 > cap) into a
+    retaining ``TraceStream``; held against the pins, against the traced
+    fixed-width carry ``tr_ref`` (lifetime counts, histograms, each
+    lane's last min(count, 64) records) and timed against the traced
+    fixed-width driver, in turns."""
+    imgs, ids, s, tr = pack_fleet(pps, fuel=FUEL, regs=regs, trace=True,
+                                  device=dev)
+    sink = TraceStream()
+    sink.push_block = pushes = Timed(sink.push_block)
+    flips = Timed(fleet.flip_trace)
+    fleet.flip_trace, orig_flip = flips, fleet.flip_trace
+    try:
+        torch.cuda.synchronize()
+        mops.megastep_chunk.launches = 0
+        t0 = time.perf_counter()
+        s_out, t_out = fleet.run_fleet_stream(imgs, s, ids, chunk=CHUNK,
+                                              trace=tr, stream=sink,
+                                              device=dev)
+        torch.cuda.synchronize()
+        driver_ms = (time.perf_counter() - t0) * 1e3
+        launches = mops.megastep_chunk.launches
+    finally:
+        fleet.flip_trace = orig_flip
+    if launches <= 0:
+        raise AssertionError("the streamed census launched no kernel")
+    if digest(s_out) != CENSUS_DEFAULT_SHA256:
+        raise AssertionError("streamed states differ from the census pin")
+    stats = sink.stats()
+    got = {k: stats[k] for k in ("records_seen", "records_dropped", "flips")}
+    if got != STREAMED_EXPECTED:
+        raise AssertionError(f"stream {got}, expected {STREAMED_EXPECTED}")
+    sha = stream_digest(sink, len(pps))
+    if sha != STREAMED_SHA256:
+        raise AssertionError("streamed records differ from the JAX "
+                             "package's (sha256)")
+    for f in ("count", "hist", "deny_count", "emul_count", "kill_count"):
+        if not torch.equal(getattr(t_out, f), getattr(tr_ref, f)):
+            raise AssertionError(f"streamed carry's {f} != the traced run's")
+    rings = recorder.harvest(tr_ref)
+    for b, (recs, _) in enumerate(rings):
+        rows = sink.export_key(b)["rows"] if recs else np.zeros((0, 8))
+        tail = recorder.decode_rows(rows[len(rows) - len(recs):])
+        if tail != recs:
+            raise AssertionError(f"lane {b}: streamed tail != ring harvest")
+    # the traced fixed-width driver and the streamed one, in turns
+    turns = {"traced": [], "streamed": []}
+    for who in ("traced", "streamed", "streamed", "traced"):
+        imgs_t, ids_t, st, tt = pack_fleet(pps, fuel=FUEL, regs=regs,
+                                           trace=True, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if who == "traced":
+            mops.run(imgs_t, ids_t, st, tt, chunk=CHUNK)
+        else:
+            fleet.run_fleet_stream(imgs_t, st, ids_t, chunk=CHUNK, trace=tt,
+                                   stream=TraceStream(), device=dev)
+        torch.cuda.synchronize()
+        turns[who].append((time.perf_counter() - t0) * 1e3)
+    return {"phase": "streamed", "card": card, **got,
+            "records_sha256": sha, "launches": launches,
+            "spans": flips.calls, "driver_ms": driver_ms,
+            "flip_host_ms": flips.seconds * 1e3,
+            "push_block_host_ms": pushes.seconds * 1e3,
+            "in_turns_driver_ms": turns, "mismatched_leaves": 0}
+
+
+def admission_phase(pps, regs, want, dev, card) -> tuple:
+    """The default census through a 128-lane pool with a 32-row image
+    table (``admission_run``), untraced (K3) and traced under all-ALLOW
+    (K2): every harvested lane equals the same lane of the fixed-width
+    runs ``want`` (states; traced, the carry too).  Returns (the phase's
+    line, {"K3": launches, "K2": launches})."""
+    line, launches = {"phase": "admission", "card": card, "pool": 128,
+                      "table_rows": 32, "span_steps": 4 * CHUNK}, {}
+    for variant, traced in (("K3", False), ("K2", True)):
+        torch.cuda.synchronize()
+        mops.megastep_chunk.launches = 0
+        t0 = time.perf_counter()
+        out_s, out_t, stats = admission_run(
+            pps, regs, pool=128, table_rows=32, steps=4 * CHUNK, dev=dev,
+            traced=traced)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[variant] = mops.megastep_chunk.launches
+        if launches[variant] <= 0:
+            raise AssertionError(f"admission {variant} launched no kernel")
+        bad = mismatched(want[0], out_s) + (
+            mismatched(want[1], out_t) if traced else [])
+        if bad:
+            raise AssertionError(f"admission {variant}: harvested lanes != "
+                                 f"the fixed-width census: {bad}")
+        if not stats["preempted"] or stats["restored"] != stats["preempted"]:
+            raise AssertionError(f"admission {variant}: {stats}")
+        line[variant] = {**stats, "launches": launches[variant],
+                         "driver_ms": ms}
+    line["mismatched_leaves"] = 0
+    return line, launches
+
+
+def compact_phase(pps, regs, dev, card) -> tuple:
+    """``run_fleet_prepared(compact=True)`` on the default census, untraced
+    (K3) and traced (K2), against the census pins and the JAX package's
+    occupancy ledgers; then the kernel's time (CUDA events around each
+    launch) and the driver's, compacted against fixed width, in turns.
+    Returns (the phase's line, {"K3": launches, "K2": launches})."""
+    ladder = precompile_compact(pps, device=dev)
+    line = {"phase": "compact", "card": card, "ladder": ladder}
+    launches = {}
+    for variant, traced in (("K3", False), ("K2", True)):
+        stats = {}
+        mops.megastep_chunk.launches = 0
+        got = run_fleet_prepared(pps, fuel=FUEL, chunk=CHUNK, regs=regs,
+                                 trace=traced, compact=True,
+                                 compact_stats=stats, device=dev)
+        torch.cuda.synchronize()
+        launches[variant] = mops.megastep_chunk.launches
+        if launches[variant] <= 0:
+            raise AssertionError(f"compact {variant} launched no kernel")
+        shas = (digest(got[0]), digest(got[1])) if traced else (digest(got),)
+        want = ((CENSUS_DEFAULT_SHA256, TRACED_SHA256) if traced
+                else (CENSUS_DEFAULT_SHA256,))
+        if shas != want:
+            raise AssertionError(f"compacted {variant} census differs from "
+                                 "the pins (sha256)")
+        pin = COMPACT_STATS_TRACED if traced else COMPACT_STATS
+        if stats != pin:
+            raise AssertionError(f"compact {variant} ledger {stats}, "
+                                 f"expected {pin}")
+        line[variant] = {"launches": launches[variant], "stats": stats}
+    # fixed width and compacted, K3, in turns: the kernel's and the
+    # driver's time from a fresh pack each
+    turns = {"fixed": [], "compact": []}
+    for who in ("fixed", "compact", "compact", "fixed"):
+        imgs, ids, s = pack_fleet(pps, fuel=FUEL, regs=regs, device=dev)
+        torch.cuda.synchronize()
+        with LaunchTimer() as timer:
+            t0 = time.perf_counter()
+            if who == "fixed":
+                mops.run(imgs, ids, s, chunk=CHUNK)
+            else:
+                fleet.run_fleet_compact(
+                    imgs, s, ids, chunk=CHUNK,
+                    min_bucket=HookConfig().compact_min_bucket,
+                    hysteresis=HookConfig().compact_hysteresis, device=dev)
+            torch.cuda.synchronize()
+            driver_ms = (time.perf_counter() - t0) * 1e3
+        turns[who].append({"kernel_ms": timer.ms(), "driver_ms": driver_ms,
+                           "launches": len(timer.pairs)})
+    line.update(in_turns=turns, mismatched_leaves=0)
+    return line, launches
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
     lanes leave a ragged last block at 3): the kernel equals the plain
@@ -2140,7 +2483,22 @@ def main(argv=None) -> int:
     serve_xl, xl_rows = serve_xlstm_phase(dev, card)
     emit(serve_xl)
 
-    # 15. the kernel table, the card, and the device line (last)
+    # 15-17. the census drivers: streamed harvest, admission and restore
+    #        into a pool, live-lane compaction
+    t0 = time.perf_counter()
+    line = streamed_phase(pps_def, regs, tr_t, dev, card)
+    launches_stream = line["launches"]
+    emit({**line, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    line, launches_adm = admission_phase(pps_def, regs, (out, tr_t), dev,
+                                         card)
+    emit({**line, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    line, launches_cmp = compact_phase(pps_def, regs, dev, card)
+    emit({**line, "seconds": time.perf_counter() - t0,
+          "script_s": time.perf_counter() - t_script})
+
+    # 18. the kernel table, the card, and the device line (last)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -2153,11 +2511,18 @@ def main(argv=None) -> int:
         {"name": "megastep_chunk K3 (untraced, emulation on)", **common,
          "launches": launches_k3, "max_abs_err": err_by["K3"],
          "ms": kernel_ms_k3, "plain_ms": plain_ms_k3, "bound_ms": bound_k3,
-         "bound_by": by_k3},
+         "bound_by": by_k3,
+         "launches_by_path": {"main_path": launches_k3,
+                              "admission": launches_adm["K3"],
+                              "compact": launches_cmp["K3"]}},
         {"name": "megastep_chunk K2 (traced, policy gate)", **common,
          "launches": launches_k2, "max_abs_err": err_by["K2"],
          "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
-         "bound_by": by_k2},
+         "bound_by": by_k2,
+         "launches_by_path": {"traced": launches_k2,
+                              "streamed": launches_stream,
+                              "admission": launches_adm["K2"],
+                              "compact": launches_cmp["K2"]}},
         {"name": "flash_attention (qwen3-1.7b prefill)", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",

@@ -11,15 +11,23 @@ every chunk of steps runs in that kernel instead.
 
 Ported: the whole executor — lanes with the guest-kernel emulation on
 (the ``HookConfig`` default) or off, untraced or with the syscall trace
-ring and seccomp-style policy carry (:class:`TraceState`).  Lane
-sharding, compaction and streaming are later slices; their entry points
-raise ``NotImplementedError``.
+ring and seccomp-style policy carry (:class:`TraceState`) — and the
+drivers around it: run to halt (:func:`run_fleet`), bounded spans
+(:func:`run_fleet_span`), lane admission and restore into a running
+fleet (:func:`admit_lanes`, :func:`restore_lanes`, :func:`set_image_row`,
+:func:`update_policy_rows`), streamed trace harvest
+(:func:`run_fleet_stream`) and live-lane compaction
+(:func:`run_fleet_compact`).  Lane sharding is a later slice; ``shard=``
+raises ``NotImplementedError``.
 
 Carry semantics: the big planes (``mem``, ``k_ino_data``, the trace ring
 and histogram) are updated in place (never copied per step); the drivers
 update every leaf of the carry they are given in place, as the JAX
-package's entry points donate theirs.  Per lane, results are
-bit-identical to the JAX package's fleet engine.
+package's entry points donate theirs.  The kernel's arguments hold raw
+pointers to the carry's leaves, so every span builds them anew: a carry
+changed between spans (admission, restore, a new image row, a flip) is
+always the one the next span runs.  Per lane, results are bit-identical
+to the JAX package's fleet engine.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from .machine import (HALT_BADMEM, HALT_EXIT, HALT_FUEL, HALT_KILL,
                       DecodedImage, MachineState, _SIGFRAME_IDX,
                       resolve_device)
 from ..emul import engine as emul_engine
+from ..emul import state as emul_state
 
 I64 = torch.int64
 I32 = torch.int32
@@ -202,13 +211,17 @@ def _fetch(img: FleetImages, ids: torch.Tensor, pc0: torch.Tensor):
     return op, rd, rn, rm, sh, cond, sf, imm
 
 
-def exec_lanes(fields, s: MachineState, tr: Optional[TraceState] = None):
+def exec_lanes(fields, s: MachineState, tr: Optional[TraceState] = None,
+               act: Optional[torch.Tensor] = None):
     """Execute one decoded instruction per live lane, generated from the
     op-spec table — a line-by-line translation of the JAX package's
     ``fleet.exec_lanes``: the ALU, memory, branch and signal semantics,
     the syscall rows, the guest-kernel service (:mod:`repro_torch.emul`)
     on lanes with ``k_enabled != 0`` and, with a trace carry ``tr``, the
     policy gate, the record ring, the histogram and the verdict counters.
+    ``act`` overrides the live-lane mask (the scalar
+    :func:`repro_torch.core.machine.step` forces it all-true); the fleet
+    drivers leave the default halted/fuel gate.
 
     Returns ``(state, trace)`` (``trace`` is None when ``tr`` is).  The
     big planes — ``s.mem``, ``s.k_ino_data``, ``tr.buf`` and ``tr.hist`` —
@@ -223,7 +236,7 @@ def exec_lanes(fields, s: MachineState, tr: Optional[TraceState] = None):
     lanes = torch.arange(B, device=dev)
     regs0, sp0, pc0, nzcv0, mem = s.regs, s.sp, s.pc, s.nzcv, s.mem
 
-    act = _alive(s)
+    act = _alive(s) if act is None else act
     sh64 = sh.to(I64)
     # JAX gathers clamp an out-of-range index; decoded ops are < N_OPS
     opi = op.long().clamp(0, int(Op.N_OPS) - 1)
@@ -757,6 +770,528 @@ def run_fleet_span(imgs, states, img_ids, *, steps: int,
                      span=-(-steps // chunk))
 
 
+def finish_halt_codes(halted: np.ndarray, icount: np.ndarray,
+                      fuel: np.ndarray) -> np.ndarray:
+    """Host-side HALT_FUEL patch for harvested lanes (what
+    :func:`run_fleet` does on the device at the end of a run)."""
+    return np.where((halted == RUNNING) & (icount >= fuel),
+                    np.int64(HALT_FUEL), halted)
+
+
+# ---------------------------------------------------------------------------
+# lane management: admission, restore, image rows, policy rows
+# ---------------------------------------------------------------------------
+#
+# Every scatter here writes into the carry's own leaves (index_copy_), so
+# the fleet keeps its buffers.  Slot lists follow the JAX package's
+# ``mode="drop"`` convention: a negative slot counts from the end, a slot
+# still out of range is dropped (callers pad with them), and of repeated
+# slots the last wins (JAX's CPU scatter order, made explicit here because
+# a CUDA index_copy_ leaves it undefined).
+
+def _slot_index(slots: Sequence[int], n_lanes: int, device):
+    """The entries of ``slots`` that land, as (their positions in
+    ``slots``, their lanes on ``device``)."""
+    idx = np.asarray(slots, np.int64).reshape(-1)
+    idx = np.where(idx < 0, idx + n_lanes, idx)
+    pos = np.flatnonzero((idx >= 0) & (idx < n_lanes))
+    # the last occurrence of each lane
+    _, first_rev = np.unique(idx[pos][::-1], return_index=True)
+    pos = np.sort(pos[len(pos) - 1 - first_rev])
+    return pos, torch.from_numpy(idx[pos]).to(device)
+
+
+def _put_lanes(tree, idx: torch.Tensor, rows) -> None:
+    """``leaf[idx[j]] = row[j]`` on every leaf of ``tree``, in place."""
+    for leaf, row in zip(tree, rows):
+        leaf.index_copy_(0, idx, row.to(leaf.device))
+
+
+def _policy_arrays(rows: Sequence):
+    """One compiled ``(action_row, arg_row)`` pair per entry (``None``:
+    all-ALLOW) as the host arrays ``[k, N_POLICY_SLOTS]``."""
+    pa = np.full((len(rows), N_POLICY_SLOTS), POL_ALLOW, np.int32)
+    pg = np.zeros((len(rows), N_POLICY_SLOTS), np.int64)
+    for i, r in enumerate(rows):
+        if r is not None:
+            pa[i], pg[i] = r
+    return pa, pg
+
+
+def admit_lanes(states: MachineState, slots: Sequence[int],
+                lane_states: Sequence[MachineState], *,
+                trace: Optional[TraceState] = None,
+                policies: Optional[Sequence] = None):
+    """Admit fresh scalar initial states into lanes ``slots`` of a batched
+    state, in place.
+
+    ``lane_states`` must be *initial* states (``runtime.initial_state``):
+    only their entry pc, fuel, mechanism flags, emulation gate and seeded
+    registers are carried — everything else is reset exactly as
+    ``initial_state`` does (zero memory, flags and counters, ``sp =
+    STACK_TOP``, ``pid = PID``, a fresh preopened guest kernel), so an
+    admitted row is bit-identical to ``initial_state``.
+
+    With ``trace`` the admitted lanes' rings are recycled (records, count,
+    halves and histogram zeroed) and ``policies`` — one ``(action_row,
+    arg_row)`` pair per slot (:func:`repro_torch.trace.policy.
+    compile_policy`), or ``None`` entries for all-ALLOW — go into the
+    policy tables; returns ``(states, trace)``.
+    """
+    if len(slots) != len(lane_states) or not len(slots):
+        raise ValueError("admit_lanes needs one lane state per slot, and at "
+                         "least one slot")
+    if trace is None and policies is not None:
+        raise ValueError("policies require a trace carry")
+    if policies is not None and len(policies) != len(slots):
+        raise ValueError("policies need one entry per slot")
+    dev = states.pc.device
+    pos, idx = _slot_index(slots, int(states.pc.shape[0]), dev)
+    if len(pos):
+        kept = [lane_states[i] for i in pos]
+
+        def col(f):
+            return torch.stack([getattr(ls, f) for ls in kept]).to(dev)
+
+        rows = make_halted_states(len(pos), device=dev)._replace(
+            regs=col("regs"), pc=col("pc"), fuel=col("fuel"),
+            halted=torch.full((len(pos),), RUNNING, dtype=I64, device=dev),
+            sig_handler=col("sig_handler"), ptrace=col("ptrace"),
+            virt_getpid=col("virt_getpid"), k_enabled=col("k_enabled"))
+        _put_lanes(states, idx, rows)
+    if trace is None:
+        return states
+    if len(pos):
+        pa, pg = _policy_arrays(policies if policies is not None
+                                else [None] * len(slots))
+        cap = int(trace.buf.shape[2])
+        rows_t = make_empty_trace(len(pos), cap, device=dev)._replace(
+            pol_action=torch.from_numpy(pa[pos]).to(dev),
+            pol_arg=torch.from_numpy(pg[pos]).to(dev))
+        _put_lanes(trace, idx, rows_t)
+    return states, trace
+
+
+def set_image_row(imgs: FleetImages, row: int,
+                  new: DecodedImage) -> FleetImages:
+    """Write one decode table into row ``row`` of a packed image stack, in
+    place, and return the stack — incremental image admission that leaves
+    the other rows and the stack's shape alone.  The next span builds its
+    decode table from the new row."""
+    one = pack_images(stack_images([new]))
+    imgs.packed[row].copy_(one.packed[0])
+    imgs.imm[row].copy_(one.imm[0])
+    return imgs
+
+
+def update_policy_rows(trace: TraceState, lanes: Sequence[int],
+                       rows: Sequence) -> TraceState:
+    """Swap the policy-table rows of *running* lanes in place, between
+    spans; rings, counters and machine states are untouched, so every
+    other lane stays bit-identical.  ``lanes`` are physical lane indices
+    (padding drops, as for :func:`admit_lanes`); ``rows`` is one compiled
+    ``(action_row, arg_row)`` pair per lane — ``None`` entries are
+    all-ALLOW."""
+    if len(lanes) != len(rows) or not len(lanes):
+        raise ValueError("update_policy_rows needs one row per lane, and at "
+                         "least one lane")
+    dev = trace.count.device
+    pos, idx = _slot_index(lanes, int(trace.count.shape[0]), dev)
+    pa, pg = _policy_arrays(rows)
+    trace.pol_action.index_copy_(0, idx, torch.from_numpy(pa[pos]).to(dev))
+    trace.pol_arg.index_copy_(0, idx, torch.from_numpy(pg[pos]).to(dev))
+    return trace
+
+
+def restore_lanes(states: MachineState, slots: Sequence[int],
+                  lane_states: Sequence[MachineState], *,
+                  trace: Optional[TraceState] = None,
+                  lane_traces: Optional[Sequence[TraceState]] = None):
+    """Scatter *checkpointed* lanes back into slots ``slots``, in place.
+
+    Unlike :func:`admit_lanes`, which rebuilds an initial state, the whole
+    per-lane carry is written — memory, registers, counters and (traced)
+    the ring, policy tables and verdict counters — so a preempted lane
+    resumes where its checkpoint left off and ends bit-identical to an
+    uninterrupted run.  A checkpoint must be a copy: :func:`unstack_state`
+    and :func:`unstack_trace` give views into the fleet, which later
+    admissions overwrite.  Slots drop as for :func:`admit_lanes`.  Returns
+    ``states``, or ``(states, trace)``.
+    """
+    if len(slots) != len(lane_states) or not len(slots):
+        raise ValueError("restore_lanes needs one lane state per slot, and "
+                         "at least one slot")
+    if trace is None and lane_traces is not None:
+        raise ValueError("lane_traces require a trace carry")
+    if trace is not None and (lane_traces is None
+                              or len(lane_traces) != len(slots)):
+        raise ValueError("a traced restore needs one lane trace per slot")
+    pos, idx = _slot_index(slots, int(states.pc.shape[0]), states.pc.device)
+    if len(pos):
+        _put_lanes(states, idx, stack_states([lane_states[i] for i in pos]))
+        if trace is not None:
+            _put_lanes(trace, idx,
+                       stack_traces([lane_traces[i] for i in pos]))
+    return states if trace is None else (states, trace)
+
+
+# ---------------------------------------------------------------------------
+# streaming trace harvest: half-flips and overlapped cold-half readback
+# ---------------------------------------------------------------------------
+#
+# At span boundaries the driver flips every lane's hot half (a [B] update;
+# the 2 x CAP buffer is never copied) and gathers the now-cold half into a
+# fresh buffer, whose copy to the host overlaps the next span.  While a
+# span runs at most CAP steps a lane (worst case one svc a step), a half
+# cannot wrap between flips, so every record reaches the host: zero drops
+# at fixed device memory.  The host side is repro_torch.trace.stream.
+
+def flip_trace(trace: TraceState):
+    """Flip every lane's hot half and gather the cold half for harvest.
+
+    Returns ``(trace, cold, counts, bases)``: the carry, updated in place
+    (``hot`` toggled, ``base`` set to the lifetime count in its own buffer:
+    it never aliases ``count``, which the next span advances; ``buf`` is
+    untouched — stale cold rows are overwritten on the next pass), the
+    cold halves as a fresh tensor ``int64[B, CAP, REC_WORDS]`` on the
+    carry's device, and host copies of the pre-flip ``count`` / ``base``:
+    lane ``b``'s cold half holds the records with lifetime sequence
+    numbers ``[bases[b], counts[b])``.
+    """
+    host = torch.stack([trace.count, trace.base]).cpu().numpy()
+    lanes = torch.arange(trace.hot.shape[0], device=trace.hot.device)
+    cold = trace.buf[lanes, trace.hot]
+    trace.hot.neg_().add_(1)
+    trace.base.copy_(trace.count)
+    return trace, cold, host[0], host[1]
+
+
+def stream_interval(cap: int, chunk: int) -> int:
+    """The widest flip interval (in steps) that still guarantees zero
+    drops when chunk boundaries permit it: the largest multiple of
+    ``chunk`` that is <= ``cap``.  When ``chunk > cap`` a flip cannot land
+    inside a chunk, so the interval is one chunk — drops are then
+    *possible* for svc-every-step lanes, and the sink counts them."""
+    if chunk >= cap:
+        return int(chunk)
+    return (cap // chunk) * chunk
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start ``t``'s copy to the host: on the card into pinned memory,
+    behind an event (:func:`_landed` waits for it)."""
+    if t.device.type == "cpu":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return host, ev
+
+
+def _landed(host, ev) -> np.ndarray:
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
+
+
+def run_fleet_stream(imgs, states, img_ids=None, *,
+                     chunk: int = DEFAULT_CHUNK,
+                     trace: TraceState,
+                     stream,
+                     interval: Optional[int] = None,
+                     keys: Optional[Sequence] = None,
+                     engine: str = "xla", device=None):
+    """:func:`run_fleet` with streaming trace harvest: run every lane to
+    halt in spans of ``interval`` steps (default :func:`stream_interval`),
+    flip the ring halves after each span and push the cold halves into
+    ``stream`` (a :class:`repro_torch.trace.stream.TraceStream`).  Machine
+    states are bit-identical to the unstreamed run; the stream receives
+    every record whenever ``interval <= cap``.
+
+    Span k's cold halves go to pinned host memory behind an event and are
+    decoded on the host while span k+1 runs.  ``keys`` names each lane in
+    the stream (default: the lane index).  Returns ``(states, trace)``;
+    ``device=None`` means the card."""
+    _check_engine(engine)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    from ..kernels.megastep import ops as mops  # lazy: kernel layer
+    imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
+    trace = traces_to(trace, states.pc.device)
+    cap = int(trace.buf.shape[2])
+    interval = stream_interval(cap, chunk) if interval is None else \
+        int(interval)
+    if interval < 1:
+        raise ValueError(f"interval must be >= 1, got {interval}")
+    span = -(-interval // chunk)
+    if keys is None:
+        keys = list(range(int(states.pc.shape[0])))
+    pending = None
+    while True:
+        mops.span(imgs, img_ids, states, trace, chunk=int(chunk), span=span)
+        if pending is not None:
+            # the previous span's cold halves, decoded while this span runs
+            stream.push_block(keys, _landed(*pending[0]), *pending[1:])
+        halted, icount, fuel = _host_rows(states.halted, states.icount,
+                                          states.fuel)
+        _, cold, counts, bases = flip_trace(trace)
+        pending = (_to_host_async(cold), counts, bases)
+        if not ((halted == RUNNING) & (icount < fuel)).any():
+            break
+    stream.push_block(keys, _landed(*pending[0]), *pending[1:])
+    states.halted.copy_(_patch_fuel(states).halted)
+    return states, trace
+
+
+def _host_rows(*leaves) -> np.ndarray:
+    """``[B]`` leaves as one host array (a copy: the leaves change in
+    place)."""
+    return torch.stack(leaves).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# live-lane compaction: bucketed re-dispatch over a ladder of widths
+# ---------------------------------------------------------------------------
+#
+# A fixed-width fleet keeps halted lanes in every launch.  Since a lane's
+# trajectory does not depend on which lanes share its launch, the fleet
+# can be compacted at span boundaries — live lanes gathered into a dense
+# prefix by one permutation of every carry leaf — and run on at a
+# narrower power-of-two width.  The inverse permutation is kept on the
+# host, and the lanes are written back into the caller's carry in lane
+# order, so results are bit-identical to run_fleet's.
+
+DEFAULT_MIN_BUCKET = 8
+
+
+def compact_ladder(n_lanes: int, min_bucket: int = DEFAULT_MIN_BUCKET, *,
+                   divisor: int = 1) -> List[int]:
+    """Descending bucket widths: the full fleet width, then every power of
+    two below it down to ``min_bucket``.  ``divisor`` keeps only rungs it
+    divides (per-shard ladders)."""
+    if n_lanes < 1:
+        raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+    min_bucket = max(1, int(min_bucket), int(divisor))
+    rungs = [int(n_lanes)]
+    w = (1 << max(0, int(n_lanes) - 1).bit_length()) >> 1
+    while w >= min_bucket:
+        if w < n_lanes and w % divisor == 0:
+            rungs.append(w)
+        w >>= 1
+    return rungs
+
+
+def choose_bucket(ladder: Sequence[int], n_live: int, *,
+                  cur: Optional[int] = None,
+                  hysteresis: float = 0.0) -> int:
+    """The occupancy-chosen rung: the smallest ladder width that holds
+    ``n_live`` lanes.  With ``hysteresis`` h, a *shrink* below ``cur`` is
+    only taken when the live count also clears ``rung * (1 - h)``, so a
+    pool near a boundary does not oscillate between rungs."""
+    asc = sorted({int(w) for w in ladder})
+    need = max(1, int(n_live))
+    target = next((w for w in asc if w >= need), asc[-1])
+    if cur is not None and hysteresis > 0.0:
+        while target < int(cur) and need > target * (1.0 - hysteresis):
+            target = next((w for w in asc if w > target), int(cur))
+    return target
+
+
+def make_halted_states(n: int, *, device=None) -> MachineState:
+    """A batched all-halted fleet state on ``device`` (``None`` means the
+    card): every lane parked on ``HALT_EXIT`` with zero fuel, so no driver
+    steps it; every leaf its own buffer.  The padding of a pool, and the
+    blank rows an admission fills in."""
+    dev = resolve_device(device)
+
+    def z():
+        return torch.zeros((n,), dtype=I64, device=dev)
+
+    def full(v):
+        return torch.full((n,), v, dtype=I64, device=dev)
+
+    return MachineState(
+        regs=torch.zeros((n, 31), dtype=I64, device=dev),
+        sp=full(L.STACK_TOP), pc=z(), nzcv=z(),
+        mem=torch.zeros((n, L.MEM_WORDS), dtype=I64, device=dev),
+        cycles=z(), icount=z(), fuel=z(), halted=full(HALT_EXIT),
+        exit_code=z(), fault_pc=z(), sig_handler=z(), in_signal=z(),
+        ptrace=z(), virt_getpid=z(), hook_count=z(), pid=full(L.PID),
+        in_off=z(), out_count=z(), out_sum=z(), enosys_count=z(),
+        emul_served=z(), **emul_state.fresh_kern(n, device=dev))
+
+
+def make_empty_trace(n: int, cap: int, *, device=None) -> TraceState:
+    """An all-ALLOW, empty-ring trace carry on ``device`` (``None`` means
+    the card): ``recorder.make_trace_state`` with no policies."""
+    from ..trace import recorder  # local: repro_torch.trace imports fleet
+    return recorder.make_trace_state(n, cap, device=device)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of tensors, named tuples and tuples."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    out = [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for x in tree:
+            yield from _leaves(x)
+
+
+def permute_split(tree, keep_idx, drop_idx):
+    """One gather over every lane-leading leaf of ``tree`` (a carry, or a
+    tuple of carries): returns ``(kept, dropped)`` trees of fresh tensors,
+    the lanes ``keep_idx`` as a dense prefix and ``drop_idx`` after."""
+    dev = next(_leaves(tree)).device
+    keep = torch.as_tensor(np.asarray(keep_idx), dtype=I64).to(dev)
+    drop = torch.as_tensor(np.asarray(drop_idx), dtype=I64).to(dev)
+    return (_tree_map(lambda x: x.index_select(0, keep), tree),
+            _tree_map(lambda x: x.index_select(0, drop), tree))
+
+
+def concat_lanes(tree, pad_tree):
+    """Append ``pad_tree``'s lanes (e.g. :func:`make_halted_states`) after
+    ``tree``'s along the lane axis: the grow transition of a pool."""
+    return _tree_map(lambda a, b: torch.cat([a, b]), tree, pad_tree)
+
+
+def precompile_ladder(imgs, ladder: Sequence[int], *,
+                      chunk: int = DEFAULT_CHUNK,
+                      interval: Optional[int] = None,
+                      trace_cap: Optional[int] = None,
+                      shard: bool = False,
+                      engine: str = "xla", device=None) -> None:
+    """Make ready everything a compacted run on ``device`` (``None`` means
+    the card) can hit, ahead of the run.  The JAX package compiles one
+    executable a rung here; the port's kernel is one build for every
+    width, image set and trace capacity, so this builds (or loads) the
+    kernel library once and ``imgs``, ``ladder``, ``chunk``, ``interval``
+    and ``trace_cap`` change nothing."""
+    _check_engine(engine, shard=shard)
+    if resolve_device(device).type == "cuda":
+        from ..kernels.megastep import kernel  # lazy: builds at first use
+        kernel.load_library()
+
+
+def _assemble_lanes(out, segments) -> None:
+    """Inverse-permutation assembly: write each finished segment (original
+    lane ids, carry slices) back into ``out``, the caller's carry, in
+    lane order, on its device."""
+    for idx, tree in segments:
+        if next(_leaves(tree)) is next(_leaves(out)):
+            continue  # never compacted: the lanes are already in place
+        lanes = torch.from_numpy(np.asarray(idx, np.int64)).to(
+            next(_leaves(out)).device)
+        for dst, src in zip(_leaves(out), _leaves(tree)):
+            dst.index_copy_(0, lanes, src)
+
+
+def run_fleet_compact(imgs, states, img_ids=None, *,
+                      chunk: int = DEFAULT_CHUNK,
+                      min_bucket: int = DEFAULT_MIN_BUCKET,
+                      hysteresis: float = 0.0,
+                      interval: Optional[int] = None,
+                      shard: bool = False,
+                      trace: Optional[TraceState] = None,
+                      stats: Optional[dict] = None,
+                      engine: str = "xla", device=None):
+    """:func:`run_fleet` with live-lane compaction: results (states, and
+    the trace carry when passed) are bit-identical and lane-ordered to
+    the fixed-width run, but halted lanes leave the launches.
+
+    The fleet runs in spans of ``interval`` masked steps (default ``8 *
+    chunk``).  After each span the live count is read back; when it falls
+    below the next rung of the ladder (:func:`compact_ladder`; power-of-two
+    widths down to ``min_bucket``, ``hysteresis`` guarding borderline
+    shrinks), live lanes are gathered into a dense prefix by one
+    permutation of every carry leaf and the run goes on at the narrower
+    width.  The finished lanes are written back into the carry passed in.
+
+    ``stats`` (a dict, filled in place) receives the occupancy ledger:
+    dispatched against useful lane-steps, the ladder and each compaction.
+    ``device=None`` means the card; ``shard`` is a later slice and raises.
+    """
+    _check_engine(engine, shard=shard)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    from ..kernels.megastep import ops as mops  # lazy: kernel layer
+    imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
+    dev = states.pc.device
+    traced = trace is not None
+    if traced:
+        trace = traces_to(trace, dev)
+    n_lanes = int(states.pc.shape[0])
+    ids_np = img_ids.cpu().numpy().copy()
+    interval = chunk * 8 if interval is None else int(interval)
+    if interval < 1:
+        raise ValueError(f"interval must be >= 1, got {interval}")
+    span = -(-interval // chunk)
+    ladder = compact_ladder(n_lanes, min_bucket)
+
+    order = np.arange(n_lanes)          # physical slot -> original lane
+    cur_s, cur_t = states, trace
+    W, ids_w = n_lanes, img_ids
+    segments = []                        # (original lane ids, carry slices)
+    prev_icount = _host_rows(cur_s.icount)[0]
+    dispatched = useful = dispatches = 0
+    compactions = []
+    while True:
+        mops.span(imgs, ids_w, cur_s, cur_t, chunk=int(chunk), span=span)
+        dispatches += 1
+        halted, icount, fuel = _host_rows(cur_s.halted, cur_s.icount,
+                                          cur_s.fuel)
+        delta = icount - prev_icount
+        # chunks actually run: the span stops at the first chunk boundary
+        # with no live lane, so the longest lane's delta rounds up to them
+        chunks_run = int(-(-int(delta.max()) // chunk)) if delta.max() else 0
+        dispatched += W * chunks_run * chunk
+        useful += int(delta.sum())
+        alive = (halted == RUNNING) & (icount < fuel)
+        n_live = int(alive.sum())
+        if n_live == 0:
+            break
+        target = choose_bucket(ladder, n_live, cur=W, hysteresis=hysteresis)
+        if target < W:
+            perm = np.argsort(~alive, kind="stable")   # live lanes first
+            kept, dropped = permute_split(
+                (cur_s, cur_t) if traced else cur_s, perm[:target],
+                perm[target:])
+            segments.append((order[perm[target:]], dropped))
+            cur_s, cur_t = kept if traced else (kept, None)
+            compactions.append({"from": W, "to": target, "live": n_live})
+            order = order[perm[:target]]
+            W = target
+            ids_w = torch.from_numpy(ids_np[order]).to(dev)
+            prev_icount = icount[perm[:target]]
+        else:
+            prev_icount = icount
+    segments.append((order, (cur_s, cur_t) if traced else cur_s))
+    _assemble_lanes((states, trace) if traced else states, segments)
+    states.halted.copy_(_patch_fuel(states).halted)
+
+    if stats is not None:
+        stats.update({
+            "ladder": ladder,
+            "interval": interval,
+            "dispatches": dispatches,
+            "compactions": compactions,
+            "final_bucket": W,
+            "dispatched_lane_steps": dispatched,
+            "useful_steps": useful,
+            "occupancy": round(useful / dispatched, 4) if dispatched else 1.0,
+            "wasted_lane_steps": dispatched - useful,
+        })
+    return (states, trace) if traced else states
+
+
 # ---------------------------------------------------------------------------
 # bulk host-side readback
 # ---------------------------------------------------------------------------
@@ -778,3 +1313,17 @@ def fleet_summary(states: MachineState) -> List[dict]:
     n = fields["halted"].shape[0]
     return [dict({k: int(v[i]) for k, v in fields.items()},
                  hooks=int(hooks[i])) for i in range(n)]
+
+
+def unpack_images(imgs: FleetImages) -> DecodedImage:
+    """Invert :func:`pack_images`: the packed words back to the eight SoA
+    decode tables, as fresh CPU tensors (vectorised: no per-word decode)."""
+    p = imgs.packed.cpu()
+
+    def f32(shift, mask):
+        return ((p >> shift) & mask).to(I32)
+
+    return DecodedImage(
+        op=f32(0, 0x3F), rd=f32(6, 0x1F), rn=f32(11, 0x1F),
+        rm=f32(16, 0x1F), sh=f32(22, 0x3F), cond=f32(28, 0xF),
+        sf=f32(32, 0x1), imm=imgs.imm.to("cpu", copy=True))

@@ -6,7 +6,8 @@ tables covering the whole executable region ``[0, CODE_LIMIT)``
 int64 tensors with the JAX package's 34 leaves, in the same order.  There
 is no separate scalar interpreter: :func:`run_image` lifts one process to
 a width-1 fleet and runs the fleet path (:mod:`repro_torch.core.fleet`),
-which is what the JAX package's scalar ``step`` does too.
+and :func:`step` runs one instruction through the fleet's executor body
+with the live mask forced on, as the JAX package's scalar ``step`` does.
 """
 from __future__ import annotations
 
@@ -160,3 +161,55 @@ def run_image(img: DecodedImage, state: MachineState, *,
 
     out = F.run_fleet([img], F.stack_states([state]), device=device)
     return F.unstack_state(out, 0)
+
+
+def step(img: DecodedImage, s: MachineState) -> MachineState:
+    """One instruction, unconditionally: the state is lifted to a width-1
+    fleet and run through the fleet's executor body
+    (:func:`repro_torch.core.fleet.exec_lanes`) with the live-lane mask
+    forced all-true, so a halted or out-of-fuel state still steps, as in
+    the JAX package's scalar ``step``.  Runs the plain executor on the
+    state's device; returns a new state and leaves ``s`` intact."""
+    from . import fleet as F  # deferred: fleet imports this module
+
+    dev = s.pc.device
+    pc = int(s.pc)
+    i = min(max(pc >> 2, 0), L.CODE_WORDS - 1)
+    ok_fetch = 0 <= pc < L.CODE_LIMIT and pc % 4 == 0
+    fields = tuple(t[i:i + 1].to(dev) for t in img)
+    if not ok_fetch:
+        fields = (torch.full((1,), int(Op.NULLPAGE), dtype=torch.int32,
+                             device=dev),) + fields[1:]
+    lifted = MachineState(*(x[None].clone() for x in s))
+    out, _ = F.exec_lanes(fields, lifted, None,
+                          act=torch.ones((1,), dtype=torch.bool, device=dev))
+    return MachineState(*(x[0] for x in out))
+
+
+# -- host-side convenience ----------------------------------------------------
+
+def _word_index(addr: int) -> int:
+    if addr % 8 or not L.DATA_BASE <= addr < L.MEM_LIMIT:
+        raise ValueError(f"address {addr:#x}: not an aligned data word")
+    return (addr - L.DATA_BASE) // 8
+
+
+def mem_read(state: MachineState, addr: int) -> int:
+    """One memory word of a scalar state."""
+    return int(state.mem[_word_index(addr)])
+
+
+def mem_read_block(state: MachineState, addr: int, nwords: int) -> np.ndarray:
+    """``nwords`` consecutive words in one device-to-host copy (a host
+    array of its own)."""
+    i0 = _word_index(addr)
+    if nwords < 0 or i0 + nwords > L.MEM_WORDS:
+        raise ValueError(f"{nwords} words from {addr:#x} leave memory")
+    return state.mem[i0:i0 + nwords].cpu().numpy().copy()
+
+
+def mem_write(state: MachineState, addr: int, value: int) -> MachineState:
+    """A new state with one memory word set; ``state`` is left intact."""
+    mem = state.mem.clone()
+    mem[_word_index(addr)] = value
+    return state._replace(mem=mem)

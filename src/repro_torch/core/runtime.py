@@ -136,35 +136,116 @@ def _image_digest(pp: PreparedProcess) -> bytes:
         np.ascontiguousarray(pp.image.words).tobytes()).digest()
 
 
+class FleetImageTable:
+    """A fixed-capacity, content-deduplicated stack of packed decode tables
+    with incremental admission and eviction — the serving-side extension
+    of :func:`pack_fleet`'s dedup.
+
+    The stack keeps the shape ``[capacity, CODE_WORDS]`` on ``device``
+    (``None`` means the card); a new image joins as one in-place row write
+    (:func:`fleet.set_image_row`).  Rows are refcounted; a released row
+    keeps its digest cached until the row is reused, so admitting a
+    recently seen binary again writes nothing.  Free rows are reused
+    oldest first."""
+
+    def __init__(self, capacity: int, *, device=None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        dev = M.resolve_device(device)
+        self.capacity = capacity
+        self._images = F.FleetImages(
+            packed=torch.zeros((capacity, L.CODE_WORDS), dtype=torch.int64,
+                               device=dev),
+            imm=torch.zeros((capacity, L.CODE_WORDS), dtype=torch.int64,
+                            device=dev))
+        self._row_of: Dict[bytes, int] = {}
+        self._digest_of: List[Optional[bytes]] = [None] * capacity
+        self._refs: List[int] = [0] * capacity
+        self._free: List[int] = list(range(capacity))  # FIFO: oldest first
+        self.admissions = 0      # row writes actually performed
+        self.dedup_hits = 0      # admissions served from a live/cached row
+
+    @property
+    def images(self) -> F.FleetImages:
+        return self._images
+
+    def live_rows(self) -> int:
+        return sum(1 for r in self._refs if r > 0)
+
+    def admit(self, pp: PreparedProcess) -> int:
+        """Return the row holding ``pp``'s decode table, admitting it (one
+        in-place row write) if no live or cached row matches."""
+        d = _image_digest(pp)
+        row = self._row_of.get(d)
+        if row is not None:
+            if self._refs[row] == 0:     # cache hit on a released row
+                self._free.remove(row)
+            self._refs[row] += 1
+            self.dedup_hits += 1
+            return row
+        if not self._free:
+            raise RuntimeError(
+                f"FleetImageTable full ({self.capacity} rows all live); "
+                f"size the table to pool width + expected binary diversity")
+        row = self._free.pop(0)
+        old = self._digest_of[row]
+        if old is not None:              # evict the cached (dead) digest
+            del self._row_of[old]
+        F.set_image_row(self._images, row, pp.decoded)
+        self._row_of[d] = row
+        self._digest_of[row] = d
+        self._refs[row] = 1
+        self.admissions += 1
+        return row
+
+    def refs(self, row: int) -> int:
+        return self._refs[row]
+
+    def release(self, row: int) -> None:
+        if self._refs[row] <= 0:
+            raise ValueError(f"row {row} double-released")
+        self._refs[row] -= 1
+        if self._refs[row] == 0:
+            self._free.append(row)       # digest stays cached until reuse
+
+
 def pack_fleet(pps: Sequence[PreparedProcess], *,
                fuel: int = 2_000_000,
                regs: Optional[Sequence[Optional[Dict[int, int]]]] = None,
-               table=None, trace: Optional[bool] = None,
+               table: Optional[FleetImageTable] = None,
+               trace: Optional[bool] = None,
                device=None):
     """Stack prepared processes into ``(images, img_ids, states)`` on
     ``device`` (``None`` means the card) for :func:`fleet.run_fleet`.
 
     Decode tables are deduplicated by image content, so a census sweeping
     iteration counts or mechanisms over shared binaries ships each
-    distinct image to the device once.  ``trace=True`` appends a fourth
-    element: the :class:`fleet.TraceState` carry from :func:`fleet_trace`.
-    The return arity depends only on this argument.  ``table``
-    (incremental admission) is a later slice and raises."""
-    if table is not None:
-        raise NotImplementedError(
-            "table= (FleetImageTable admission) is not ported yet "
-            "(lane-management slice)")
+    distinct image to the device once.  With ``table`` (a
+    :class:`FleetImageTable` on the same device) the images are admitted
+    into that fixed-capacity stack instead — the continuous-batching entry
+    path, where later admissions keep the stack's shape.  ``trace=True``
+    appends a fourth element: the :class:`fleet.TraceState` carry from
+    :func:`fleet_trace`.  The return arity depends only on this
+    argument."""
     dev = M.resolve_device(device)
-    ids = np.zeros(len(pps), np.int32)
-    digests: Dict[bytes, int] = {}
-    uniq: List[M.DecodedImage] = []
-    for i, pp in enumerate(pps):
-        d = _image_digest(pp)
-        if d not in digests:
-            digests[d] = len(uniq)
-            uniq.append(pp.decoded)
-        ids[i] = digests[d]
-    imgs = F.images_to(F.pack_images(F.stack_images(uniq)), dev)
+    if table is not None:
+        if table.images.packed.device != dev:
+            raise ValueError(f"the image table is on "
+                             f"{table.images.packed.device}, the fleet on "
+                             f"{dev}")
+        ids = np.asarray([table.admit(pp) for pp in pps], np.int32)
+        imgs = table.images
+    else:
+        ids = np.zeros(len(pps), np.int32)
+        digests: Dict[bytes, int] = {}
+        uniq: List[M.DecodedImage] = []
+        for i, pp in enumerate(pps):
+            d = _image_digest(pp)
+            if d not in digests:
+                digests[d] = len(uniq)
+                uniq.append(pp.decoded)
+            ids[i] = digests[d]
+        imgs = F.images_to(F.pack_images(F.stack_images(uniq)), dev)
     if regs is None:
         regs = [None] * len(pps)
     states = F.states_to(F.stack_states(
@@ -198,15 +279,20 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
     With ``trace=True`` returns ``(states, trace_state)``: the syscall
     rings and policy verdicts of the whole fleet.  ``policy_overrides``
     (lane -> ``PolicyRule`` list; requires ``trace=True``) replaces those
-    lanes' policy rows in the trace carry before the run.  ``shard`` and
-    ``compact`` are later slices and raise.
+    lanes' policy rows in the trace carry before the run
+    (:func:`update_fleet_policy`); every other lane is untouched.
+
+    ``compact`` switches to :func:`fleet.run_fleet_compact` (live lanes
+    gathered into narrower widths as the fleet drains), with
+    ``compact_min_bucket`` / ``compact_hysteresis`` from the first
+    process's ``HookConfig``; ``None`` defers to its ``compact_enabled``.
+    Results and the return arity are unchanged.  ``compact_stats`` (a
+    dict, filled in place) receives a compacted run's occupancy ledger.
+    ``shard`` is a later slice and raises.
     """
     cfg = next((pp.cfg for pp in pps if pp.cfg is not None), None)
     if compact is None:
         compact = cfg.compact_enabled if cfg is not None else False
-    if compact or compact_stats is not None:
-        raise NotImplementedError(
-            "compact=True is not ported yet (compaction slice)")
     if engine is None:
         engine = cfg.fleet_engine if cfg is not None else "xla"
     F._check_engine(engine, shard=shard)
@@ -219,18 +305,62 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
     imgs, ids, states = packed[:3]
     ts = packed[3] if trace else None
     if policy_overrides:
-        from ..trace import policy as TP  # local: repro_torch.trace uses core
         lanes = sorted(policy_overrides)
         bad = [ln for ln in lanes if not 0 <= ln < len(pps)]
         if bad:
+            # the scatter drops stray lanes (a padding convention); here
+            # one would silently leave the fleet unenforced
             raise ValueError(
                 f"policy_overrides lanes {bad} out of range for "
                 f"{len(pps)} lanes")
-        pa, pg = TP.policy_rows([policy_overrides[ln] for ln in lanes])
-        ts.pol_action[lanes] = torch.from_numpy(pa).to(ts.pol_action.device)
-        ts.pol_arg[lanes] = torch.from_numpy(pg).to(ts.pol_arg.device)
+        update_fleet_policy(ts, lanes, [policy_overrides[ln] for ln in lanes])
+    if compact:
+        ccfg = cfg or HookConfig()
+        return F.run_fleet_compact(
+            imgs, states, ids, chunk=chunk, trace=ts,
+            min_bucket=ccfg.compact_min_bucket,
+            hysteresis=ccfg.compact_hysteresis, stats=compact_stats,
+            engine=engine, device=states.pc.device)
     return F.run_fleet(imgs, states, ids, chunk=chunk, engine=engine,
                        trace=ts, device=states.pc.device)
+
+
+def update_fleet_policy(trace: F.TraceState, lanes: Sequence[int],
+                        rules: Sequence) -> F.TraceState:
+    """Compile per-lane rule lists and swap them into the trace carry's
+    policy rows in place (:func:`fleet.update_policy_rows`).  ``rules`` is
+    one ``PolicyRule`` list per lane (``None`` = all-ALLOW); rules are
+    validated up front."""
+    from ..trace import policy as TP  # local: repro_torch.trace uses core
+    rows = [TP.compile_policy(r) if r is not None else None for r in rules]
+    return F.update_policy_rows(trace, lanes, rows)
+
+
+def precompile_compact(pps: Sequence[PreparedProcess], *,
+                       chunk: Optional[int] = None,
+                       min_bucket: Optional[int] = None,
+                       interval: Optional[int] = None,
+                       trace: Optional[bool] = None,
+                       shard: bool = False, device=None) -> List[int]:
+    """Make ready every rung of the compaction ladder that
+    ``run_fleet_prepared(compact=True)`` over ``pps`` visits
+    (:func:`fleet.precompile_ladder`: on the card, the kernel library is
+    built or loaded once), so a timed run pays no build.  ``chunk`` and
+    ``min_bucket`` default to the first process's config.  Returns the
+    ladder."""
+    cfg = next((pp.cfg for pp in pps if pp.cfg is not None), None) \
+        or HookConfig()
+    chunk = cfg.fleet_chunk if chunk is None else chunk
+    min_bucket = cfg.compact_min_bucket if min_bucket is None else min_bucket
+    ladder = F.compact_ladder(len(pps), min_bucket)
+    cap = None
+    if trace:
+        caps = [pp.cfg.trace_cap for pp in pps if pp.cfg is not None]
+        cap = max(caps) if caps else F.DEFAULT_TRACE_CAP
+    F.precompile_ladder([pp.decoded for pp in pps], ladder, chunk=chunk,
+                        interval=interval, trace_cap=cap, shard=shard,
+                        device=device)
+    return ladder
 
 
 def hook_invocations(state: M.MachineState) -> int:

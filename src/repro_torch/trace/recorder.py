@@ -138,8 +138,12 @@ def make_trace_state(n_lanes: int, cap: int = DEFAULT_TRACE_CAP, *,
         hot=zeros(n_lanes),
         base=zeros(n_lanes),
         hist=zeros(n_lanes, N_POLICY_SLOTS, N_VERDICTS),
-        pol_action=torch.from_numpy(np.array(pa, np.int32)).to(device),
-        pol_arg=torch.from_numpy(np.array(pg, np.int64)).to(device),
+        # row-major copies: a copy of the broadcast default keeps its
+        # column-major strides, which the kernel refuses
+        pol_action=torch.from_numpy(np.array(pa, np.int32, order="C")).to(
+            device),
+        pol_arg=torch.from_numpy(np.array(pg, np.int64, order="C")).to(
+            device),
         deny_count=zeros(n_lanes),
         emul_count=zeros(n_lanes),
         kill_count=zeros(n_lanes),
@@ -166,7 +170,7 @@ def harvest_lane(buf: np.ndarray, count: int) -> Tuple[List[TraceRecord], int]:
     When the ring wrapped, the oldest surviving record sits at
     ``count % cap`` — the slot the next append would overwrite.  Flipped
     (streamed) lanes are not decodable from the carry alone; their records
-    live in the stream sink (not ported yet).
+    live in the stream sink (:class:`repro_torch.trace.stream.TraceStream`).
     """
     buf = _host(buf)
     if buf.ndim == 3:          # [2, CAP, REC_WORDS]: the un-flipped hot half

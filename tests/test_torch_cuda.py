@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (HookConfig, interop, pack_fleet,
+from repro_torch.core import (HookConfig, fleet, interop, pack_fleet,
                               run_fleet_prepared)
 from repro_torch.core.machine import MachineState
 from repro_torch.core.runtime import fleet_trace
@@ -222,6 +222,88 @@ def test_traced_run_on_card_matches_cpu(census_every_tenth, card):
     for w, g in zip(want, got):
         _assert_equal(w, type(g)(*(x.cpu() for x in g)), "traced run")
     assert int(want[1].deny_count[1]) > 0
+
+
+# -- the census drivers: streamed harvest, compaction, admission -------------
+
+def _small_census(census_every_tenth):
+    pps, regs = census_every_tenth[:2]
+    pps, regs = pps[:10], [dict(r) for r in regs[:10]]
+    for r in regs:
+        r[19] = 3
+    return pps, regs
+
+
+def _on_cpu(tree):
+    return type(tree)(*(x.cpu() for x in tree))
+
+
+def test_stream_on_card_matches_cpu(census_every_tenth, card):
+    """run_fleet_stream on the card (cap 8, flips every 8 steps) equals the
+    CPU path: states, carry, and every streamed record with its key,
+    epoch and seq; each chunk one launch."""
+    from repro_torch.trace import MemoryWriter, TraceStream, make_trace_state
+    pps, regs = _small_census(census_every_tenth)
+    outs = []
+    for dev in (card, "cpu"):
+        imgs, ids, s = pack_fleet(pps, fuel=SMOKE.FUEL, regs=regs,
+                                  device=dev)
+        sink = TraceStream([MemoryWriter()])
+        mops.megastep_chunk.launches = 0
+        got = fleet.run_fleet_stream(
+            imgs, s, ids, chunk=8, stream=sink, device=dev,
+            trace=make_trace_state(len(pps), 8, device=dev))
+        outs.append((got, sink, mops.megastep_chunk.launches))
+    (g, gsink, launches), (w, wsink, _) = outs
+    _assert_equal(w[0], _on_cpu(g[0]), "streamed states")
+    _assert_equal(w[1], _on_cpu(g[1]), "streamed carry")
+    assert gsink.stats() == wsink.stats() and gsink.records_dropped == 0
+
+    def recs(sink):
+        return [(k, e, q, r.step, r.pc, r.nr, r.ret)
+                for k, e, q, r in sink.writers[0].records]
+    assert recs(gsink) == recs(wsink) and recs(gsink)
+    assert launches == -(-int(w[0].icount.max()) // 8)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_compact_on_card_matches_cpu(census_every_tenth, card, traced):
+    """run_fleet_compact on the card (min bucket 2) equals the CPU path,
+    states, carry and occupancy ledger."""
+    pps, regs = _small_census(census_every_tenth)
+    outs = []
+    for dev in (card, "cpu"):
+        imgs, ids, s, tr = pack_fleet(pps, fuel=SMOKE.FUEL, regs=regs,
+                                      trace=True, device=dev)
+        stats = {}
+        mops.megastep_chunk.launches = 0
+        got = fleet.run_fleet_compact(imgs, s, ids, chunk=16, min_bucket=2,
+                                      trace=tr if traced else None,
+                                      stats=stats, device=dev)
+        outs.append((got if traced else (got,), stats,
+                     mops.megastep_chunk.launches))
+    (g, gstats, launches), (w, wstats, _) = outs
+    for a, b in zip(w, g):
+        _assert_equal(a, _on_cpu(b), "compacted run")
+    assert gstats == wstats and gstats["compactions"] and launches > 0
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_admission_on_card_matches_cpu(census_every_tenth, card, traced):
+    """chip_smoke.py's continuous-batching loop on the card (a 4-lane pool,
+    a 6-row image table, preemption and restore) harvests every lane
+    equal to the fixed-width CPU run's."""
+    pps, regs = _small_census(census_every_tenth)
+    mops.megastep_chunk.launches = 0
+    out_s, out_t, stats = SMOKE.admission_run(
+        pps, regs, pool=4, table_rows=6, steps=64, chunk=16, dev=card,
+        traced=traced, preempt_every=2, preempt_n=2)
+    assert mops.megastep_chunk.launches > 0
+    want = run_fleet_prepared(pps, fuel=SMOKE.FUEL, chunk=16, regs=regs,
+                              trace=traced, device="cpu")
+    for a, b in zip(want, (out_s, out_t)) if traced else [(want, out_s)]:
+        _assert_equal(a, _on_cpu(b), "admission")
+    assert stats["preempted"] and stats["restored"] == stats["preempted"]
 
 
 # -- attention kernels (tolerances: tests/test_kernels.py:26-27, by dtype) ----

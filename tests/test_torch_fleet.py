@@ -260,14 +260,21 @@ def test_census_counts_are_pinned():
 
 
 def test_unported_paths_raise():
+    """Only lane sharding is still a later slice: ``shard=`` raises, while
+    ``compact=True`` and ``pack_fleet(table=)`` run and agree with the
+    fixed-width run."""
+    from repro_torch.core import FleetImageTable
     cfg = HookConfig(emul_enabled=False)
     pps = [prepare(programs.getpid_loop(3), Mechanism.ASC, virtualize=True,
                    cfg=cfg)] * 2
-    for kw in ({"compact": True}, {"shard": True}):
-        with pytest.raises(NotImplementedError):
-            run_fleet_prepared(pps, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        pack_fleet(pps, table=object(), device="cpu")
+        run_fleet_prepared(pps, device="cpu", shard=True)
+    fixed = run_fleet_prepared(pps, device="cpu")
+    compacted = run_fleet_prepared(pps, device="cpu", compact=True)
+    assert all(torch.equal(x, y) for x, y in zip(fixed, compacted))
+    imgs, ids, _ = pack_fleet(pps, table=FleetImageTable(2, device="cpu"),
+                              device="cpu")
+    assert imgs.packed.shape[0] == 2 and ids.tolist() == [0, 0]
     with pytest.raises(ValueError, match="unknown fleet engine"):
         run_fleet_prepared(pps, engine="mosaic", device="cpu")
     # both JAX engine names run the one dispatcher, with equal results
