@@ -24,6 +24,11 @@ every kernel launch counted from 0 just before and read just after:
   census through a 128-lane pool (``admit_lanes``, ``restore_lanes``, a
   ``FleetImageTable``, ``run_fleet_span``) and the census compacted
   (``run_fleet_prepared(compact=True)``), untraced (K3) and traced (K2).
+* The fleet server (``repro_torch.serve.fleet_server.FleetServer``): the
+  census served through a 128-lane pool, untraced, then traced, streamed,
+  compacted and observed; the noisy-neighbor mix under the policy
+  scheduler; a C3 request re-admitted in the fleet — every generation the
+  same megastep kernel (K3 untraced, K2 traced).
 * LM serving: ``repro_torch.serve.engine.ServeEngine`` over qwen3-1.7b at
   full width (28 layers, d_model 2048, random weights from a seeded
   ``torch.Generator``): 8 prompts of 64..512 tokens, 32 new tokens each —
@@ -144,7 +149,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     census, untraced and traced, against the census pins and the JAX
     package's occupancy ledgers; kernel and driver ms, compacted against
     fixed width, in turns;
-18. the kernel table line (the megastep's launches on every path), the
+18. ``fleet_server``: ``repro_torch.serve.fleet_server.FleetServer`` on
+    the card — the census through a 128-lane pool, generations of 512
+    steps, untraced (K3; every published state equal to phase 3's lane,
+    sha256 by rid the census pin) and traced, streamed, compacted and
+    observed (K2; 0 records dropped, the records by rid the streamed
+    census's, the profiler's phase breakdown on a line of its own); the
+    noisy-neighbor mix of benchmarks/policy_scheduler.py at 128 lanes,
+    unscheduled and scheduled (every state equal to its solo run,
+    evicted lanes restored bit for bit); one C3 request (0 scalar
+    re-executions, events equal to ``run_with_c3``'s) — each against the
+    JAX server's pins;
+19. the kernel table line (the megastep's launches on every path), the
     card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
@@ -153,6 +169,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import hashlib
 import json
 import math
@@ -160,6 +177,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -172,7 +190,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import (  # noqa: E402
     FleetImageTable, HookConfig, Mechanism, fleet, initial_state, interop,
     pack_fleet, precompile_compact, prepare, programs, run_fleet_prepared,
-    run_fleet_span)
+    run_fleet_span, run_prepared, run_with_c3)
 from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.hookcfg import PolicyRule  # noqa: E402
@@ -198,7 +216,9 @@ from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
     rglru_scan_ref, rglru_scan_seq)
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
+from repro_torch.sched import PolicyScheduler, TenantBudget  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.fleet_server import FleetServer  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
 from repro_torch.trace import recorder  # noqa: E402
 from repro_torch.trace.stream import TraceStream  # noqa: E402
@@ -287,6 +307,89 @@ CHURN_EXPECTED = {
 TABLE3_CYCLES = {"ld_preload": 18.0, "asc": 105.0, "signal": 2812.0,
                  "ptrace": 5940.0}
 N_HI, N_LO = 400, 200  # benchmarks/hook_overhead.py's differential
+
+# -- the fleet server (serve/fleet_server.py) --------------------------------
+# The census served through a 128-lane pool (the admission phase's width),
+# generations of 512 steps in chunks of 128; then the noisy-neighbor mix of
+# benchmarks/policy_scheduler.py (its full-size arguments) scaled from a
+# pool of 8 to 128: 16x the storms and victims, the same iterations,
+# budget, deadline, generation and chunk.
+FS_POOL = 128
+FS_GEN_STEPS = 4 * CHUNK
+SCHED_MIX = {"pool": 128, "gen_steps": 256, "chunk": 64, "n_noisy": 192,
+             "n_victim": 128, "storm_iters": 200, "victim_iters": 12,
+             "budget_svc": 1500, "deadline_steps": 512}
+# What the JAX package's FleetServer gives for these runs (CPU;
+# scripts/torch_port_pins.py): the census served untraced, then traced,
+# streamed, compacted and observed (its publication ledger and stats; the
+# streamed records by rid must also give STREAMED_SHA256), the mix
+# unscheduled and scheduled (scheduler counters, victims' latency in
+# generations), and one C3 request served after the scheduled mix.
+FS_SERVED_EXPECTED = {
+    "generations": 61, "dispatches": 61, "completed": 500,
+    "harvested_steps": 3_603_972, "discarded_steps": 0, "c3_readmissions": 0,
+    "scalar_reexecutions": 0, "image_admissions": 20, "image_dedup_hits": 480,
+    "enosys_total": 0, "emul_served_total": 198_696, "trace_records": 0,
+    "trace_dropped": 0, "trace_histogram": {}, "dispatched_steps": 3_981_312,
+    "executed_steps": 3_603_972, "occupancy": 0.9052, "pool_grows": 0,
+    "pool_shrinks": 0, "min_bucket_seen": 128, "admission_waits": 500,
+    "admission_wait_gens_mean": 21.302, "admission_wait_gens_max": 46,
+    "resume_waits": 0, "stream": {},
+    "ledger_sha256":
+        "0f879bf83896f6350b970a2dcaa05c8c1e9f6bc98eb1a8185aca3cda9589b6d4"}
+FS_TRACED_EXPECTED = {
+    **FS_SERVED_EXPECTED, "trace_records": 263_036,
+    "trace_histogram": {
+        "read": {"ALLOW": 92_544}, "write": {"ALLOW": 46_534},
+        "getpid": {"ALLOW": 41_252}, "exit": {"ALLOW": 500},
+        "rt_sigreturn": {"ALLOW": 22_588}, "openat": {"ALLOW": 24_384},
+        "close": {"ALLOW": 24_384}, "lseek": {"ALLOW": 10_850}},
+    "dispatched_steps": 3_853_312, "occupancy": 0.9353, "pool_shrinks": 3,
+    "min_bucket_seen": 8,
+    "stream": {"records_seen": 263_036, "records_emitted": 263_036,
+               "records_dropped": 0, "flips": 244, "buffered_records": 0}}
+
+
+def _tenant(submitted, svc, evictions=0, budget_exhaustions=0) -> dict:
+    return {"submitted": submitted, "completed": submitted, "svc": svc,
+            "deny": 0, "emul": 0, "kill": 0, "enosys": 0, "killed": 0,
+            "preemptions": 0, "evictions": evictions,
+            "budget_exhaustions": budget_exhaustions, "policy_updates": 0,
+            "shed": 0}
+
+
+FS_SCHED_EXPECTED = {
+    "unscheduled": {
+        "generations": 110, "idle_generations": 0, "preemptions": 0,
+        "evictions": 0, "budget_exhaustions": 0, "quarantine_blocks": 0,
+        "trace_records": 12_416, "trace_dropped": 141_504,
+        "quarantine_events": 0,
+        "tenants": {"noisy": _tenant(192, 153_792),
+                    "victim": _tenant(128, 128)},
+        "victim_latency_gens": {"p50": 58.5, "p95": 60.0, "max": 60},
+        "noisy_latency_gens": {"p50": 55.0, "p95": 110.0},
+        "preempted_results": 0,
+        "ledger_sha256":
+            "fb90111b4c5173eb37fd2cc107fa6fcdc9f3af04c604212f52b6fd59a7f43dac"},
+    "scheduled": {
+        "generations": 5010, "idle_generations": 4924, "preemptions": 0,
+        "evictions": 10_368, "budget_exhaustions": 81,
+        "quarantine_blocks": 4926, "trace_records": 12_416,
+        "trace_dropped": 141_504, "quarantine_events": 81,
+        "tenants": {"noisy": _tenant(192, 153_792, 10_368, 81),
+                    "victim": _tenant(128, 128)},
+        "victim_latency_gens": {"p50": 3.0, "p95": 3.0, "max": 3},
+        "noisy_latency_gens": {"p50": 5009.0, "p95": 5010.0},
+        "preempted_results": 192,
+        "ledger_sha256":
+            "fae8b1c67f60058a38c87bc2be1205ab79902559bf04124cd813c2a877508408"}}
+FS_C3_EXPECTED = {
+    "events": [{"syscall_nr": 172, "svc_addr": 98_308, "lib": "libc.so",
+                "offset": 4}],
+    "attempts": 2, "halted": 1, "c3_readmissions": 1,
+    "scalar_reexecutions": 0,
+    "state_sha256":
+        "0a7f1e8cf0e41e4d2014c506667d472c513694b62b199f70ed46d963d25ed5a4"}
 
 # -- the bound's counting rules (PERF.md section 6) ---------------------------
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -2075,6 +2178,280 @@ def compact_phase(pps, regs, dev, card) -> tuple:
     return line, launches
 
 
+# -- the fleet server ---------------------------------------------------------
+#
+# The helpers take the package (PORT here, the JAX package in
+# scripts/torch_port_pins.py) so both servers are driven the same way.
+
+PORT = types.SimpleNamespace(
+    FleetServer=FleetServer, PolicyScheduler=PolicyScheduler,
+    TenantBudget=TenantBudget, prepare=prepare, programs=programs,
+    Mechanism=Mechanism)
+
+SERVED_STATS = (
+    "generations", "dispatches", "completed", "harvested_steps",
+    "discarded_steps", "c3_readmissions", "scalar_reexecutions",
+    "image_admissions", "image_dedup_hits", "enosys_total",
+    "emul_served_total", "trace_records", "trace_dropped",
+    "trace_histogram", "dispatched_steps", "executed_steps", "occupancy",
+    "pool_grows", "pool_shrinks", "min_bucket_seen", "admission_waits",
+    "admission_wait_gens_mean", "admission_wait_gens_max", "resume_waits")
+
+
+def json_sha(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                          ).hexdigest()
+
+
+def publication_ledger(results) -> list:
+    """[rid, admitted_gen, completed_gen, attempts, preemptions], by rid:
+    the server's host decisions, which count generations, not time."""
+    return sorted([int(r.rid), int(r.admitted_gen), int(r.completed_gen),
+                   int(r.attempts), int(r.preemptions)] for r in results)
+
+
+def records_digest(results) -> str:
+    """sha256 of every published trace record, rids in order, each rid's
+    records in sequence order, 8 int64 words each: stream_digest's
+    format, so rid i's records digest as a stream's key i."""
+    h = hashlib.sha256()
+    for r in sorted(results, key=lambda r: r.rid):
+        if r.trace:
+            h.update(np.asarray([dataclasses.astuple(x) for x in r.trace],
+                                np.int64).tobytes())
+    return h.hexdigest()
+
+
+def census_server(pkg, pps, regs, **kw):
+    """A FS_POOL-lane server of ``pkg`` with the census queued on it in
+    census order (request i is census lane i)."""
+    srv = pkg.FleetServer(pool=FS_POOL, gen_steps=FS_GEN_STEPS, chunk=CHUNK,
+                          fuel=FUEL, **kw)
+    for pp, rg in zip(pps, regs):
+        srv.submit(pp, regs=rg)
+    return srv
+
+
+def served_summary(srv, results) -> dict:
+    """The served census's deterministic stats and publication ledger."""
+    st = srv.stats()
+    out = {k: st[k] for k in SERVED_STATS}
+    out["stream"] = {k: st["stream"][k] for k in
+                     ("records_seen", "records_emitted", "records_dropped",
+                      "flips", "buffered_records")} if st["stream"] else {}
+    out["ledger_sha256"] = json_sha(publication_ledger(results))
+    return out
+
+
+def sched_mix(pkg, mix=SCHED_MIX):
+    """benchmarks/policy_scheduler.py's build_mix in ``pkg``: ``n_noisy``
+    svc storms (unhooked) and ``n_victim`` short hooked getpid loops, as
+    [(prepared process, entry registers)] each."""
+    storm = pkg.prepare(pkg.programs.syscall_storm_param(),
+                        pkg.Mechanism.NONE)
+    victim = pkg.prepare(pkg.programs.getpid_loop_param(),
+                         pkg.Mechanism.ASC, virtualize=True)
+    return ([(storm, {19: mix["storm_iters"], 20: 4, 21: 20})]
+            * mix["n_noisy"],
+            [(victim, {19: mix["victim_iters"]})] * mix["n_victim"])
+
+
+def serve_sched_mix(pkg, noisy, vics, *, scheduled, mix=SCHED_MIX, **kw):
+    """benchmarks/policy_scheduler.py's serve_mix on ``pkg``'s server: the
+    storms first, one generation, then the deadline-carrying victims;
+    traced (the budget reads the verdict counters).  Returns (the
+    deterministic summary, the server, {rid: result}, {rid: tenant})."""
+    sched = (pkg.PolicyScheduler(budgets={"noisy": pkg.TenantBudget(
+        max_svc=mix["budget_svc"])}) if scheduled else None)
+    srv = pkg.FleetServer(pool=mix["pool"], gen_steps=mix["gen_steps"],
+                          chunk=mix["chunk"], fuel=FUEL, scheduler=sched,
+                          trace=True, **kw)
+    meta = {}
+    for pp, rg in noisy:
+        meta[srv.submit(pp, regs=rg, tenant="noisy", priority=0)] = "noisy"
+    results = {r.rid: r for r in srv.step()}
+    for pp, rg in vics:
+        meta[srv.submit(pp, regs=rg, tenant="victim", priority=10,
+                        deadline_steps=mix["deadline_steps"])] = "victim"
+    for r in srv.run():
+        results[r.rid] = r
+    if len(results) != len(meta):
+        raise AssertionError(f"{len(results)} of {len(meta)} published")
+    lat = {"noisy": [], "victim": []}
+    for rid, tenant in meta.items():
+        lat[tenant].append(results[rid].completed_gen
+                           - results[rid].submitted_gen)
+    st = srv.stats()
+    summary = {
+        **{k: st[k] for k in ("generations", "idle_generations",
+                              "preemptions", "evictions",
+                              "budget_exhaustions", "quarantine_blocks",
+                              "trace_records", "trace_dropped")},
+        "quarantine_events": (len(st["quarantine"]["events"])
+                              if st["quarantine"] else 0),
+        "tenants": st["tenants"],
+        "victim_latency_gens": {
+            "p50": float(np.percentile(lat["victim"], 50)),
+            "p95": float(np.percentile(lat["victim"], 95)),
+            "max": int(np.max(lat["victim"]))},
+        "noisy_latency_gens": {
+            "p50": float(np.percentile(lat["noisy"], 50)),
+            "p95": float(np.percentile(lat["noisy"], 95))},
+        "preempted_results": sum(r.preemptions > 0
+                                 for r in results.values()),
+        "ledger_sha256": json_sha(publication_ledger(results.values()))}
+    return summary, srv, results, meta
+
+
+def c3_request(pkg, srv):
+    """tests/test_fleet_server.py's C3 workload (indirect_svc(3), hooked,
+    virtualized) served on ``srv`` after what it served before.  Returns
+    (the result, its deterministic summary)."""
+    rid = srv.submit(lambda: pkg.programs.indirect_svc(3), virtualize=True,
+                     tenant="c3")
+    res = {r.rid: r for r in srv.run()}[rid]
+    st = srv.stats()
+    return res, {"events": [dataclasses.asdict(e) for e in res.events],
+                 "attempts": res.attempts, "halted": int(res.state.halted),
+                 "state_sha256": digest(res.state),
+                 "c3_readmissions": st["c3_readmissions"],
+                 "scalar_reexecutions": st["scalar_reexecutions"]}
+
+
+def differs(got: dict, want: dict) -> list:
+    return sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+
+
+def equal_to_solo(states, solo) -> list:
+    """The leaves on which any of ``states`` differs from ``solo``."""
+    st = fleet.stack_states(states)
+    return [f for f, x, y in zip(st._fields, st, solo)
+            if not torch.equal(x, y.unsqueeze(0).expand_as(x))]
+
+
+def fleet_server_phase(pps, regs, want, dev, card) -> tuple:
+    """The fleet server on the card, three arms (PERF.md section 4):
+
+    * ``served``: the census through FS_POOL lanes, untraced (K3); every
+      published state equal to ``want``'s lane (the fixed-width census),
+      the JAX server's ledger and stats, no scalar re-execution;
+    * ``served_traced``: the same, traced, streamed, compacted and
+      observed (K2); 0 records dropped, the records by rid equal to the
+      census stream's (STREAMED_SHA256), the states equal to ``served``'s,
+      the profiler's phase breakdown;
+    * ``scheduled``: the noisy-neighbor mix unscheduled and scheduled
+      (K2), every state equal to its solo run on the card, the JAX
+      server's scheduler counters; then one C3 request on the scheduled
+      server, its events equal to ``run_with_c3``'s and the JAX pin's.
+
+    Returns (the phase's line, its breakdown line, {arm: launches})."""
+    line = {"phase": "fleet_server", "card": card, "pool": FS_POOL,
+            "gen_steps": FS_GEN_STEPS, "chunk": CHUNK}
+    launches = {}
+
+    def drive(arm, fn):
+        torch.cuda.synchronize()
+        mops.megastep_chunk.launches = 0
+        with LaunchTimer() as timer:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches[arm] = mops.megastep_chunk.launches
+        if launches[arm] <= 0:
+            raise AssertionError(f"fleet_server {arm} launched no kernel")
+        kernel_ms = timer.ms()
+        return out, {"launches": launches[arm], "ms": ms,
+                     "kernel_ms": kernel_ms,
+                     "device_idle_share": 1 - kernel_ms / ms}
+
+    stacked = {}
+    for arm, kw, pin in (
+            ("served", {}, FS_SERVED_EXPECTED),
+            ("served_traced", {"trace": True, "stream": True,
+                               "compact": True, "obs": True},
+             FS_TRACED_EXPECTED)):
+        srv = census_server(PORT, pps, regs, device=dev, **kw)
+        srv.precompile_ladder()
+        results, timing = drive(arm, srv.run)
+        by_rid = sorted(results, key=lambda r: r.rid)
+        if [r.rid for r in by_rid] != list(range(len(pps))):
+            raise AssertionError(f"{arm}: published rids differ")
+        stacked[arm] = fleet.stack_states([r.state for r in by_rid])
+        bad = mismatched(want, stacked[arm])
+        if bad or digest(stacked[arm]) != CENSUS_DEFAULT_SHA256:
+            raise AssertionError(f"{arm}: served states != the census: {bad}")
+        got = served_summary(srv, results)
+        if got["scalar_reexecutions"] or differs(got, pin):
+            raise AssertionError(f"{arm}: {differs(got, pin)} differ from "
+                                 f"the JAX server's: {got}")
+        line[arm] = {**timing, "generations": got["generations"],
+                     "occupancy": got["occupancy"],
+                     "ledger_sha256": got["ledger_sha256"]}
+        if arm == "served_traced":
+            sha = records_digest(results)
+            if got["stream"]["records_dropped"] or sha != STREAMED_SHA256:
+                raise AssertionError("served_traced: records dropped or "
+                                     "differing from the census stream")
+            line[arm].update(records=got["trace_records"],
+                             records_sha256=sha,
+                             pool_shrinks=got["pool_shrinks"],
+                             min_bucket_seen=got["min_bucket_seen"])
+            m = srv.metrics()
+            breakdown = {
+                "phase": "fleet_server_breakdown", "card": card,
+                "arm": arm, "generation_ms": m["generation"]["total_s"] * 1e3,
+                "generations": m["generation"]["count"],
+                "phase_coverage": m["phase_coverage"],
+                "phases_ms": {k: v["total_s"] * 1e3
+                              for k, v in m["phases"].items()},
+                "phase_counts": {k: v["count"]
+                                 for k, v in m["phases"].items()}}
+    bad = mismatched(stacked["served"], stacked["served_traced"])
+    if bad:
+        raise AssertionError(f"served_traced states != served's: {bad}")
+
+    noisy, vics = sched_mix(PORT)
+    solo = {"noisy": run_prepared(noisy[0][0], fuel=FUEL, regs=noisy[0][1],
+                                  device=dev),
+            "victim": run_prepared(vics[0][0], fuel=FUEL, regs=vics[0][1],
+                                   device=dev)}
+    line["scheduled"] = {"mix": SCHED_MIX}
+    for arm, scheduled in (("unscheduled", False), ("scheduled", True)):
+        (got, srv, results, meta), timing = drive(
+            arm, lambda: serve_sched_mix(PORT, noisy, vics,
+                                         scheduled=scheduled, device=dev))
+        for tenant in ("noisy", "victim"):
+            bad = equal_to_solo([results[rid].state for rid, t in meta.items()
+                                 if t == tenant], solo[tenant])
+            if bad:
+                raise AssertionError(f"{arm} {tenant}: published states != "
+                                     f"the solo run: {bad}")
+        pin = FS_SCHED_EXPECTED[arm]
+        if differs(got, pin):
+            raise AssertionError(f"{arm}: {differs(got, pin)} differ from "
+                                 f"the JAX server's: {got}")
+        line["scheduled"][arm] = {**timing, **{
+            k: got[k] for k in ("generations", "preemptions", "evictions",
+                                "budget_exhaustions", "quarantine_events",
+                                "preempted_results", "victim_latency_gens")}}
+    if not line["scheduled"]["scheduled"]["preempted_results"]:
+        raise AssertionError("the scheduled mix restored no preempted lane")
+    (res, got), timing = drive("c3", lambda: c3_request(PORT, srv))
+    ref, _, ev_ref, runs_ref = run_with_c3(
+        lambda: programs.indirect_svc(3), cfg=HookConfig(), virtualize=True,
+        fuel=FUEL, device=dev)
+    if ([dataclasses.asdict(e) for e in ev_ref] != got["events"]
+            or runs_ref != got["attempts"] or mismatched(ref, res.state)
+            or got["scalar_reexecutions"] or got["c3_readmissions"] != 1
+            or differs(got, FS_C3_EXPECTED)):
+        raise AssertionError(f"C3 request {got}: run_with_c3 gave "
+                             f"{ev_ref} in {runs_ref} runs")
+    line["c3"] = {**timing, **got}
+    line["mismatched_leaves"] = 0
+    return line, breakdown, launches
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
     lanes leave a ragged last block at 3): the kernel equals the plain
@@ -2495,10 +2872,17 @@ def main(argv=None) -> int:
     emit({**line, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     line, launches_cmp = compact_phase(pps_def, regs, dev, card)
+    emit({**line, "seconds": time.perf_counter() - t0})
+
+    # 18. the fleet server over the census and the noisy-neighbor mix
+    t0 = time.perf_counter()
+    line, breakdown, launches_fs = fleet_server_phase(pps_def, regs, out,
+                                                      dev, card)
     emit({**line, "seconds": time.perf_counter() - t0,
           "script_s": time.perf_counter() - t_script})
+    emit(breakdown)
 
-    # 18. the kernel table, the card, and the device line (last)
+    # 19. the kernel table, the card, and the device line (last)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -2514,7 +2898,8 @@ def main(argv=None) -> int:
          "bound_by": by_k3,
          "launches_by_path": {"main_path": launches_k3,
                               "admission": launches_adm["K3"],
-                              "compact": launches_cmp["K3"]}},
+                              "compact": launches_cmp["K3"],
+                              "fleet_server": launches_fs["served"]}},
         {"name": "megastep_chunk K2 (traced, policy gate)", **common,
          "launches": launches_k2, "max_abs_err": err_by["K2"],
          "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
@@ -2522,7 +2907,10 @@ def main(argv=None) -> int:
          "launches_by_path": {"traced": launches_k2,
                               "streamed": launches_stream,
                               "admission": launches_adm["K2"],
-                              "compact": launches_cmp["K2"]}},
+                              "compact": launches_cmp["K2"],
+                              "fleet_server": sum(
+                                  n for arm, n in launches_fs.items()
+                                  if arm != "served")}},
         {"name": "flash_attention (qwen3-1.7b prefill)", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",

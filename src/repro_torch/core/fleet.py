@@ -699,7 +699,8 @@ def _check_engine(engine: str, *, shard: bool = False) -> str:
             f"unknown fleet engine {engine!r}: expected one of {ENGINES}")
     if shard:
         raise NotImplementedError(
-            "shard=True is not ported yet (lane-sharding slice)")
+            "shard=True is not ported yet (lane sharding, ROADMAP Queue 1 "
+            "item 6)")
     return engine
 
 

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (HookConfig, fleet, interop, pack_fleet,
-                              run_fleet_prepared)
+from repro_torch.core import (HookConfig, fleet, interop, layout as L,
+                              pack_fleet, run_fleet_prepared)
 from repro_torch.core.machine import MachineState
 from repro_torch.core.runtime import fleet_trace
 from repro_torch.configs import RunConfig, get_smoke
@@ -37,7 +37,9 @@ from repro_torch.kernels.rglru_scan import ops as rops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref, rglru_scan_seq
 from repro_torch.models import lm
 from repro_torch.models import recurrent as rec
+from repro_torch.sched import PolicyScheduler, TenantBudget
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.fleet_server import FleetServer
 from repro_torch.trace import policy as tpolicy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -74,6 +76,10 @@ def census_every_tenth(card, request):
 
 def _clone(tree):
     return type(tree)(*(x.clone() for x in tree))
+
+
+def _to_cpu(tree):
+    return type(tree)(*(x.cpu() for x in tree))
 
 
 def _assert_equal(a, b, what):
@@ -702,3 +708,101 @@ def test_serve_engine_runs_the_mlstm_kernel(card):
     lp, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
                                     mlstm=SMOKE.plain_mlstm)
     SMOKE.compare_routes(lk, lp, tokens, cfg.vocab)
+
+
+# -- the fleet server on the card --------------------------------------------
+
+def _fs_serve(device, *, stream=False, obs=False):
+    """A small traced, compacted and scheduled server: three storms of a
+    noisy tenant under a svc budget, then a deadline-carrying victim
+    (preemption, budget evictions and restores), a denied storm and a C3
+    request.  Returns (server, results in publication order)."""
+    pkg = SMOKE.PORT
+    srv = FleetServer(pool=3, gen_steps=40, chunk=8, fuel=SMOKE.FUEL,
+                      trace=True, stream=stream, compact=True, obs=obs,
+                      cfg=HookConfig(compact_min_bucket=1),
+                      scheduler=PolicyScheduler(
+                          budgets={"noisy": TenantBudget(max_svc=12)}),
+                      device=device)
+    storm = pkg.prepare(pkg.programs.syscall_storm_param(),
+                        pkg.Mechanism.NONE)
+    victim = pkg.prepare(pkg.programs.getpid_loop_param(), pkg.Mechanism.ASC,
+                         virtualize=True)
+    for n in (6, 5, 4):
+        srv.submit(storm, regs={19: n, 20: 2, 21: 3}, tenant="noisy")
+    out = srv.step()
+    srv.submit(victim, regs={19: 2}, tenant="victim", priority=10,
+               deadline_steps=40)
+    srv.submit(storm, regs={19: 3, 20: 2, 21: 1}, tenant="d",
+               policy=[tpolicy.deny(L.SYS_GETPID, errno=13)])
+    srv.submit(lambda: pkg.programs.indirect_svc(3), virtualize=True,
+               tenant="c3")
+    return srv, out + srv.run(max_generations=20000)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_fleet_server_on_card_equals_cpu(card, stream):
+    """The same server on the card (every generation through the megastep
+    kernel) and on CPU tensors (its plain version): every published
+    result and the stats equal, state for state."""
+    mops.megastep_chunk.launches = 0
+    gsrv, gres = _fs_serve(card, stream=stream)
+    assert mops.megastep_chunk.launches > 0
+    csrv, cres = _fs_serve("cpu", stream=stream)
+    assert [r.rid for r in gres] == [r.rid for r in cres]
+    for g, c in zip(gres, cres):
+        assert g.state.pc.device.type == "cuda"
+        _assert_equal(c.state, _to_cpu(g.state), f"rid {g.rid}")
+        for f in ("events", "attempts", "admitted_gen", "completed_gen",
+                  "trace", "trace_dropped", "histogram", "preemptions"):
+            assert getattr(g, f) == getattr(c, f), (g.rid, f)
+    gst, cst = gsrv.stats(), csrv.stats()
+    clock = {k for k in gst if k.endswith("_ms_mean") or k.endswith("_ms_max")}
+    assert {k: v for k, v in gst.items() if k not in clock} == \
+        {k: v for k, v in cst.items() if k not in clock}
+    assert gst["evictions"] + gst["preemptions"] >= 1
+    assert gst["c3_readmissions"] == 1 and gst["scalar_reexecutions"] == 0
+
+
+def test_fleet_server_published_states_survive_on_card(card):
+    """Published states are copies on the card: no later generation or
+    admission writes them."""
+    srv = FleetServer(pool=1, gen_steps=40, chunk=8, fuel=SMOKE.FUEL,
+                      device=card)
+    pp = SMOKE.PORT.prepare(SMOKE.PORT.programs.getpid_loop_param(),
+                            SMOKE.PORT.Mechanism.ASC, virtualize=True)
+    for n in (2, 5, 3):
+        srv.submit(pp, regs={19: n})
+    first = []
+    while not first:
+        first = srv.step()
+    kept = _clone(first[0].state)
+    ptrs = {x.untyped_storage().data_ptr() for x in srv._states}
+    assert not ptrs & {x.untyped_storage().data_ptr()
+                       for x in first[0].state}
+    rest = srv.run()
+    assert len(rest) == 2
+    _assert_equal(kept, first[0].state, "published state")
+    assert not torch.equal(srv._states.icount[0], kept.icount)
+
+
+def test_fleet_server_device_sync_is_a_synchronize(card, monkeypatch):
+    """Observed, each dispatched generation's device_sync phase is one
+    torch.cuda.synchronize on the server's card; the published states
+    equal an unobserved server's."""
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(device=None):
+        calls.append(device)
+        real(device)
+
+    plain_srv, plain = _fs_serve(card)
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    srv, res = _fs_serve(card, obs=True)
+    monkeypatch.undo()
+    phases = srv.metrics()["phases"]
+    assert phases["device_sync"]["count"] == srv.dispatches
+    assert calls.count(srv.device) >= srv.dispatches
+    for a, b in zip(plain, res):
+        _assert_equal(a.state, b.state, f"rid {a.rid} observed")
