@@ -107,7 +107,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     ``tests/test_kernels.py``'s cases, odd lengths and widths, h0 zero and
     not, recurrentgemma-2b's prefill and decode shapes: bit for bit
     against the sequential version, within atol 1e-5 / rtol 1e-4 of the
-    associative scan;
+    associative scan; the prefill and decode device times beside an empty
+    kernel's in the same CUDA-graph harness (the launch floor, decode's
+    bound with its bytes);
 12. ``serve_recurrentgemma``: the hybrid serving path, checked as
     ``serve`` is, every scan call also against both plain versions; the
     kernel route bit for bit equal to the route with the scan's
@@ -160,7 +162,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     evicted lanes restored bit for bit); one C3 request (0 scalar
     re-executions, events equal to ``run_with_c3``'s) — each against the
     JAX server's pins;
-19. the kernel table line (the megastep's launches on every path), the
+19. ``durable_server``: ``repro_torch.serve.durability`` and ``.chaos``
+    on the card, one line an arm, each against the JAX server's pins —
+    ``durable`` (benchmarks/durability_overhead.py's census at 400
+    lanes, plain then durable at snapshot interval 8: every state the
+    census pin's by rid, the publication ledgers equal, both wall times
+    and the overhead beside the reference's 10 % bar, the snapshots and
+    journal records, the profiler's journal and snapshot phases),
+    ``kill_recover`` (killed after 11 generations, recovered, drained:
+    the union by rid the census), ``traced_recover`` (the
+    ``served_traced`` server durable, killed at generation 11: the
+    records by rid the census stream's, 0 dropped, the obs counters
+    monotone) and ``chaos_soak`` (tests/test_durability.py's soak
+    settings on the census at 128 lanes: the injection ledger, every
+    published state the census lane's but those a bit-flip reached
+    before a boundary verified it, which differ by that bit alone);
+20. the kernel table line (the megastep's launches on every path), the
     card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
@@ -217,6 +234,8 @@ from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.sched import PolicyScheduler, TenantBudget  # noqa: E402
+from repro_torch.serve.chaos import ChaosMonkey  # noqa: E402
+from repro_torch.serve.durability import DurabilityManager  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.fleet_server import FleetServer  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
@@ -390,6 +409,49 @@ FS_C3_EXPECTED = {
     "scalar_reexecutions": 0,
     "state_sha256":
         "0a7f1e8cf0e41e4d2014c506667d472c513694b62b199f70ed46d963d25ed5a4"}
+
+# -- durable serving and chaos (serve/durability.py, serve/chaos.py) ---------
+# The durable arm is benchmarks/durability_overhead.py's run_bench: the
+# census through a 400-lane pool, generations of 512 steps in chunks of
+# 128, a snapshot every 8 generations, the journal fsync'd at its commit
+# points (HookConfig's default), untraced; both runs observed, for the
+# profiler's journal and snapshot phases.  kill_recover is its
+# run_kill_recover (killed after DUR_INTERVAL + 3 generations);
+# traced_recover kills fleet_server's served_traced server, durable at
+# interval 8, at generation 11; the soak is tests/test_durability.py's
+# chaos settings on the census at FS_POOL lanes, untraced.
+DUR_POOL = 400
+DUR_INTERVAL = 8
+DUR_KILL = DUR_INTERVAL + 3
+TRACED_KILL = 11
+SOAK_CFG = {"snapshot_interval": 3, "journal_fsync": False,
+            "serve_watchdog_s": 0.001, "chaos_seed": 7,
+            "chaos_dispatch_fault_rate": 0.12, "chaos_hang_rate": 0.04,
+            "chaos_bitflip_rate": 0.35, "chaos_snapshot_corrupt_rate": 0.25,
+            "chaos_max_retries": 2, "chaos_backoff_base_ms": 0}
+OVERHEAD_BAR_PCT = 10.0    # the reference benchmark's bar, printed only
+# What the JAX package's FleetServer gives for these arms (CPU;
+# scripts/torch_port_pins.py --only durable).  The soak's two escaped
+# flips and its unresolved one are the reference's (ROADMAP Queue 3
+# item 4), and so is its recovery_generations (item 5).
+DURABLE_EXPECTED = {
+    "generations": 30, "snapshots": 3, "journal_records": 534,
+    "ledger_sha256":
+        "1a8ac7600a4a9b9b7e4072d4b4ba3d5ec166327b83a010a754ec56be0bfeba2f"}
+KILL_RECOVER_EXPECTED = {"killed_at_generation": 11,
+                         "replayed_generations": 3, "replayed_results": 0}
+TRACED_RECOVER_EXPECTED = {**KILL_RECOVER_EXPECTED, "records": 263_036}
+CHAOS_SOAK_EXPECTED = {
+    "injections": 26,
+    "by_kind": {"corrupt": 8, "bitflip": 8, "hang": 4, "dispatch": 6},
+    "by_resolution": {"rewritten": 8, "rolled_back": 7, "retried": 10,
+                      "UNRESOLVED": 1},
+    "unresolved": 1, "generations": 61, "rollbacks": 6, "retries": 10,
+    "recovery_generations": 189, "watchdog_trips": 4, "snapshots": 20,
+    "snapshot_rewrites": 8, "shed_rids": [],
+    "ledger_sha256":
+        "1640ac03331280519981aa59cd2567f354c2813a562ccd1241259a2f7a99801a",
+    "escaped_flip_rids": [222, 480]}
 
 # -- the bound's counting rules (PERF.md section 6) ---------------------------
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1481,6 +1543,23 @@ def rglru_phase(dev, card) -> tuple:
         n_checks += 2
     a, b, h0 = scan_inputs(RG_SCAN_PREFILL, 7, dev)
     bnd, by = bound_ms(*scan_work(RG_SCAN_PREFILL), torch.float32)
+    # the launch floor: an empty kernel (torch.cuda._sleep(0), one thread
+    # that returns at once) in the same CUDA-graph harness as the scan's
+    # prefill and decode device times; decode's bound is the larger of
+    # its bytes and that floor
+    a_d, b_d, h0_d = scan_inputs(RG_SCAN_DECODE, 8, dev)
+    dec_bnd, dec_by = bound_ms(*scan_work(RG_SCAN_DECODE), torch.float32)
+    floor = {"prefill_device_ms": device_ms(lambda: rops.rglru_scan(a, b,
+                                                                    h0)),
+             "decode_device_ms": device_ms(lambda: rops.rglru_scan(
+                 a_d, b_d, h0_d)),
+             "empty_kernel_device_ms": device_ms(
+                 lambda: torch.cuda._sleep(0)),
+             "decode_bytes_bound_ms": dec_bnd, "decode_bytes_bound_by": dec_by}
+    floor["decode_bound_ms"] = max(dec_bnd, floor["empty_kernel_device_ms"])
+    floor["prefill_bound_share"] = bnd / floor["prefill_device_ms"]
+    floor["decode_bound_share"] = (floor["decode_bound_ms"]
+                                   / floor["decode_device_ms"])
     return ({"phase": "rglru_vs_plain", "card": card, "checks": n_checks,
              "cases": [list(c) + [z] for c, z in cases],
              "unequal_to_sequential": 0, "over_bound": 0,
@@ -1490,8 +1569,8 @@ def rglru_phase(dev, card) -> tuple:
              "plain_ms": cuda_ms(lambda: rglru_scan_ref(a, b, h0), reps=3),
              "sequential_ms": cuda_ms(lambda: rglru_scan_seq(a, b, h0),
                                       reps=1),
-             "bound_ms": bnd, "bound_by": by,
-             "seconds": time.perf_counter() - t0}, err)
+             "bound_ms": bnd, "bound_by": by, "decode_shape": RG_SCAN_DECODE,
+             **floor, "seconds": time.perf_counter() - t0}, err)
 
 
 def serve_rg_phase(dev, card) -> tuple:
@@ -2186,7 +2265,8 @@ def compact_phase(pps, regs, dev, card) -> tuple:
 PORT = types.SimpleNamespace(
     FleetServer=FleetServer, PolicyScheduler=PolicyScheduler,
     TenantBudget=TenantBudget, prepare=prepare, programs=programs,
-    Mechanism=Mechanism)
+    Mechanism=Mechanism, HookConfig=HookConfig,
+    DurabilityManager=DurabilityManager, ChaosMonkey=ChaosMonkey)
 
 SERVED_STATS = (
     "generations", "dispatches", "completed", "harvested_steps",
@@ -2318,6 +2398,131 @@ def c3_request(pkg, srv):
                  "scalar_reexecutions": st["scalar_reexecutions"]}
 
 
+def drained(srv) -> bool:
+    return (not srv._queue and not srv._readmit
+            and all(r is None for r in srv._slots))
+
+
+def durable_census(pkg, pps, regs, directory=None, **kw):
+    """benchmarks/durability_overhead.py's run_server on ``pkg``'s server,
+    observed: the census at DUR_POOL lanes, durable in ``directory`` (or
+    plain without one).  Returns (the server, its results, the seconds
+    the submits took: a durable submit journals the request)."""
+    dur = pkg.DurabilityManager(directory) if directory is not None else None
+    srv = pkg.FleetServer(pool=DUR_POOL, gen_steps=FS_GEN_STEPS, chunk=CHUNK,
+                          fuel=FUEL,
+                          cfg=pkg.HookConfig(snapshot_interval=DUR_INTERVAL),
+                          durability=dur, obs=True, **kw)
+    t0 = time.perf_counter()
+    for pp, rg in zip(pps, regs):
+        srv.submit(pp, regs=rg)
+    submit_s = time.perf_counter() - t0
+    return srv, srv.run(), submit_s
+
+
+def durable_summary(srv, results) -> dict:
+    st = srv.stats()
+    return {"generations": st["generations"], "snapshots": st["snapshots"],
+            "journal_records": st["journal_records"],
+            "ledger_sha256": json_sha(publication_ledger(results))}
+
+
+def kill_and_recover(pkg, make, directory, kill_after, *, watch=None, **kw):
+    """A durable server ``make()`` stepped ``kill_after`` generations and
+    dropped, then ``pkg.FleetServer.recover(directory, **kw)`` and drained
+    (benchmarks/durability_overhead.py's run_kill_recover).  ``watch``
+    reads the server just before the kill.  Returns (the recovered
+    server, the results by rid — at-least-once, the last wins — the
+    deterministic counts, the wall times, what ``watch`` read)."""
+    srv = make()
+    pre = []
+    for _ in range(kill_after):
+        if drained(srv):
+            break
+        pre.extend(srv.step())
+    counts_ = {"killed_at_generation": srv.generation}
+    seen = watch(srv) if watch is not None else None
+    del srv                                    # the crash
+    t0 = time.perf_counter()
+    srv, replayed = pkg.FleetServer.recover(directory, **kw)
+    restore_s = time.perf_counter() - t0
+    post = srv.run()
+    walls = {"restore_s": restore_s,
+             "drain_s": time.perf_counter() - t0 - restore_s}
+    union = {}
+    for r in pre + replayed + post:
+        union[r.rid] = r
+    counts_.update(replayed_generations=srv.stats()["recovery_generations"],
+                   replayed_results=len(replayed))
+    return srv, union, counts_, walls, seen
+
+
+def obs_watermark(srv) -> dict:
+    """What a scraper reads from an observed server: counter series, phase
+    counts, the generation count and the span events."""
+    hub = srv._obs
+    return {"counters": hub.registry.counter_watermark(),
+            "phases": dict(hub.profiler.counts),
+            "generations": hub.profiler.gen_count,
+            "events": dict(hub.spans.summary()["events"])}
+
+
+def not_below(after: dict, before: dict) -> list:
+    """The series of ``before`` (obs_watermark) that ``after`` fell
+    below."""
+    out = [k for k, v in before["counters"].items()
+           if after["counters"].get(k, 0) < v]
+    out += [k for k, v in before["phases"].items()
+            if after["phases"].get(k, 0) < v]
+    out += [k for k, v in before["events"].items()
+            if after["events"].get(k, 0) < v]
+    if after["generations"] < before["generations"]:
+        out.append("generations")
+    return out
+
+
+def chaos_census(pkg, pps, regs, directory, **kw):
+    """The census at FS_POOL lanes under the soak's chaos (SOAK_CFG),
+    stepped until drained.  Returns (the server, results by rid)."""
+    srv = pkg.FleetServer(pool=FS_POOL, gen_steps=FS_GEN_STEPS, chunk=CHUNK,
+                          fuel=FUEL, cfg=pkg.HookConfig(**SOAK_CFG),
+                          durability=pkg.DurabilityManager(directory),
+                          chaos=pkg.ChaosMonkey(), **kw)
+    for pp, rg in zip(pps, regs):
+        srv.submit(pp, regs=rg)
+    out = {}
+    for _ in range(100_000):
+        if drained(srv):
+            break
+        for r in srv.step():
+            out[r.rid] = r
+    return srv, out
+
+
+def soak_summary(srv) -> dict:
+    st = srv.stats()
+    summ = srv._chaos.summary()
+    return {"injections": summ["injections"], "by_kind": summ["by_kind"],
+            "by_resolution": summ["by_resolution"],
+            "unresolved": summ["unresolved"],
+            **{k: st[k] for k in ("generations", "rollbacks", "retries",
+                                  "recovery_generations", "watchdog_trips",
+                                  "snapshots", "snapshot_rewrites")},
+            "shed_rids": sorted(e["rid"] for e in st["shed"]),
+            "ledger_sha256": json_sha(srv._chaos.injections)}
+
+
+def injected_flip(got_mem, want_mem, ledger) -> bool:
+    """``got_mem`` (one lane's memory, host) differs from ``want_mem`` in
+    exactly one word, by one bit-flip of the chaos ledger."""
+    diff = np.asarray(got_mem) ^ np.asarray(want_mem)
+    words = np.flatnonzero(diff)
+    return len(words) == 1 and any(
+        i["kind"] == "bitflip" and i["word"] == words[0]
+        and diff[words[0]] == np.int64(1) << np.int64(i["bit"])
+        for i in ledger)
+
+
 def differs(got: dict, want: dict) -> list:
     return sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
 
@@ -2327,6 +2532,26 @@ def equal_to_solo(states, solo) -> list:
     st = fleet.stack_states(states)
     return [f for f, x, y in zip(st._fields, st, solo)
             if not torch.equal(x, y.unsqueeze(0).expand_as(x))]
+
+
+def run_counted(name, fn) -> tuple:
+    """``fn()`` with the megastep's launch count set to 0 just before and
+    read just after, and every launch timed on the card (LaunchTimer).
+    Returns (what ``fn`` returned, {launches, ms, kernel_ms,
+    device_idle_share}); raises if the run launched no kernel."""
+    torch.cuda.synchronize()
+    mops.megastep_chunk.launches = 0
+    with LaunchTimer() as timer:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = mops.megastep_chunk.launches
+    if launches <= 0:
+        raise AssertionError(f"{name} launched no kernel")
+    kernel_ms = timer.ms()
+    return out, {"launches": launches, "ms": ms, "kernel_ms": kernel_ms,
+                 "device_idle_share": 1 - kernel_ms / ms}
 
 
 def fleet_server_phase(pps, regs, want, dev, card) -> tuple:
@@ -2350,20 +2575,9 @@ def fleet_server_phase(pps, regs, want, dev, card) -> tuple:
     launches = {}
 
     def drive(arm, fn):
-        torch.cuda.synchronize()
-        mops.megastep_chunk.launches = 0
-        with LaunchTimer() as timer:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-        launches[arm] = mops.megastep_chunk.launches
-        if launches[arm] <= 0:
-            raise AssertionError(f"fleet_server {arm} launched no kernel")
-        kernel_ms = timer.ms()
-        return out, {"launches": launches[arm], "ms": ms,
-                     "kernel_ms": kernel_ms,
-                     "device_idle_share": 1 - kernel_ms / ms}
+        out, timing = run_counted(f"fleet_server {arm}", fn)
+        launches[arm] = timing["launches"]
+        return out, timing
 
     stacked = {}
     for arm, kw, pin in (
@@ -2450,6 +2664,167 @@ def fleet_server_phase(pps, regs, want, dev, card) -> tuple:
     line["c3"] = {**timing, **got}
     line["mismatched_leaves"] = 0
     return line, breakdown, launches
+
+
+def states_by_rid(results, n) -> MachineState:
+    """Published states stacked by rid (rids 0..n-1, each once)."""
+    by_rid = sorted(results, key=lambda r: r.rid)
+    if [r.rid for r in by_rid] != list(range(n)):
+        raise AssertionError("published rids differ from the requests")
+    return fleet.stack_states([r.state for r in by_rid])
+
+
+def durable_server_phase(pps, regs, want, dev, card) -> tuple:
+    """Durable serving and chaos on the card, four arms (PERF.md section 4),
+    each against the JAX server's pins:
+
+    * ``durable``: the census through DUR_POOL lanes (K3), plain then
+      durable in a directory of its own; every published state equal to
+      ``want``'s lane (the census pin by rid), the durable publication
+      ledger equal to the plain one; both wall times and the overhead,
+      the snapshots and journal, the profiler's journal and snapshot
+      phases;
+    * ``kill_recover``: the durable server killed after DUR_KILL
+      generations, ``FleetServer.recover``-ed and drained; the union by
+      rid equal to the census;
+    * ``traced_recover``: fleet_server's ``served_traced`` server (K2)
+      durable, killed at TRACED_KILL and recovered; the records by rid
+      the census stream's (STREAMED_SHA256), 0 dropped, the obs counters
+      not below what the dead server showed;
+    * ``chaos_soak``: the census at FS_POOL lanes under SOAK_CFG (K3);
+      the ledger the JAX server's, every published state the census
+      lane's but those a bit-flip reached before any boundary verified
+      it (ROADMAP Queue 3), each of which differs by exactly that bit;
+      shed and published together every rid.
+
+    Returns (one line per arm, {arm: launches})."""
+    lines, launches = [], {}
+    n = len(pps)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-durable-") as tmp:
+        tmp = Path(tmp)
+        runs = {}
+        for arm, d in (("plain", None), ("durable", tmp / "durable")):
+            (srv, res, submit_s), timing = run_counted(
+                f"durable_server {arm}",
+                lambda: durable_census(PORT, pps, regs, d, device=dev))
+            timing["submit_ms"] = submit_s * 1e3
+            bad = mismatched(want, states_by_rid(res, n))
+            if bad:
+                raise AssertionError(f"durable {arm}: states != the census: "
+                                     f"{bad}")
+            runs[arm] = (srv, res, timing)
+        (srv, res, timing), (_, res_p, t_plain) = runs["durable"], \
+            runs["plain"]
+        launches["durable"] = timing["launches"] + t_plain["launches"]
+        if publication_ledger(res) != publication_ledger(res_p):
+            raise AssertionError("durable: publication ledger != plain's")
+        got = durable_summary(srv, res)
+        if differs(got, DURABLE_EXPECTED):
+            raise AssertionError(f"durable: {differs(got, DURABLE_EXPECTED)} "
+                                 f"differ from the JAX server's: {got}")
+        phases = srv.metrics()["phases"]
+        st = srv.stats()
+        lines.append({
+            "phase": "durable_server", "arm": "durable", "card": card,
+            "pool": DUR_POOL, "gen_steps": FS_GEN_STEPS, "chunk": CHUNK,
+            "snapshot_interval": DUR_INTERVAL, **got,
+            "snapshot_bytes": st["snapshot_bytes"],
+            "plain": t_plain, "durable": timing,
+            "overhead_pct": 100 * (timing["ms"] - t_plain["ms"])
+            / t_plain["ms"], "reference_bar_pct": OVERHEAD_BAR_PCT,
+            "phases_ms": {k: phases[k]["total_s"] * 1e3 for k in
+                          ("journal_append", "snapshot_write")
+                          if k in phases},
+            "phase_counts": {k: phases[k]["count"] for k in
+                             ("journal_append", "snapshot_write")
+                             if k in phases},
+            "mismatched_leaves": 0})
+        del srv, res, res_p, runs
+
+        def victim():
+            s = FleetServer(pool=DUR_POOL, gen_steps=FS_GEN_STEPS,
+                            chunk=CHUNK, fuel=FUEL,
+                            cfg=HookConfig(snapshot_interval=DUR_INTERVAL),
+                            durability=DurabilityManager(tmp / "victim"),
+                            device=dev)
+            for pp, rg in zip(pps, regs):
+                s.submit(pp, regs=rg)
+            return s
+        (srv, union, got, walls, _), timing = run_counted(
+            "durable_server kill_recover", lambda: kill_and_recover(
+                PORT, victim, tmp / "victim", DUR_KILL, device=dev))
+        launches["kill_recover"] = timing["launches"]
+        bad = mismatched(want, states_by_rid(union.values(), n))
+        if bad or differs(got, KILL_RECOVER_EXPECTED):
+            raise AssertionError(f"kill_recover: states {bad}, counts "
+                                 f"{got} (JAX: {KILL_RECOVER_EXPECTED})")
+        lines.append({"phase": "durable_server", "arm": "kill_recover",
+                      "card": card, **got, **walls, **timing,
+                      "mismatched_leaves": 0})
+        del srv, union
+
+        (srv, union, got, walls, before), timing = run_counted(
+            "durable_server traced_recover", lambda: kill_and_recover(
+                PORT, lambda: census_server(
+                    PORT, pps, regs, trace=True, stream=True, compact=True,
+                    obs=True, durability=DurabilityManager(tmp / "traced"),
+                    device=dev),
+                tmp / "traced", TRACED_KILL, watch=obs_watermark,
+                device=dev))
+        launches["traced_recover"] = timing["launches"]
+        below = not_below(obs_watermark(srv), before)
+        sha = records_digest(union.values())
+        got["records"] = sum(len(r.trace) for r in union.values())
+        dropped = srv.stats()["stream"]["records_dropped"]
+        bad = mismatched(want, states_by_rid(union.values(), n))
+        if (bad or below or dropped or sha != STREAMED_SHA256
+                or differs(got, TRACED_RECOVER_EXPECTED)):
+            raise AssertionError(
+                f"traced_recover: states {bad}, obs below the dead "
+                f"server's {below}, {dropped} dropped, records "
+                f"{sha == STREAMED_SHA256}, counts {got} (JAX: "
+                f"{TRACED_RECOVER_EXPECTED})")
+        lines.append({"phase": "durable_server", "arm": "traced_recover",
+                      "card": card, **got, "records_sha256": sha,
+                      "records_dropped": dropped, "obs_below": below,
+                      **walls, **timing, "mismatched_leaves": 0})
+        del srv, union
+
+        (srv, got), timing = run_counted(
+            "durable_server chaos_soak",
+            lambda: chaos_census(PORT, pps, regs, tmp / "soak", device=dev))
+        launches["chaos_soak"] = timing["launches"]
+        summary = soak_summary(srv)
+        shed = set(summary["shed_rids"])
+        if set(got) | shed != set(range(n)) or set(got) & shed:
+            raise AssertionError("chaos_soak: published and shed do not "
+                                 "partition the requests")
+        rids = sorted(got)
+        pub = fleet.stack_states([got[r].state for r in rids])
+        ref = MachineState(*(x.index_select(
+            0, torch.tensor(rids, device=dev)) for x in want))
+        escaped = []
+        for f, a, b in zip(pub._fields, pub, ref):
+            lanes = (a != b).reshape(len(rids), -1).any(1).nonzero()
+            lanes = lanes.reshape(-1).tolist()
+            if lanes and f != "mem":
+                raise AssertionError(f"chaos_soak: {f} of rids "
+                                     f"{[rids[i] for i in lanes]} != census")
+            for i in lanes:
+                if not injected_flip(a[i].cpu().numpy(), b[i].cpu().numpy(),
+                                     srv._chaos.injections):
+                    raise AssertionError(f"chaos_soak: rid {rids[i]}'s mem "
+                                         "differs beyond an injected flip")
+                escaped.append(rids[i])
+        summary["escaped_flip_rids"] = escaped
+        if differs(summary, CHAOS_SOAK_EXPECTED):
+            raise AssertionError(
+                f"chaos_soak: {differs(summary, CHAOS_SOAK_EXPECTED)} "
+                f"differ from the JAX server's: {summary}")
+        lines.append({"phase": "durable_server", "arm": "chaos_soak",
+                      "card": card, "pool": FS_POOL, "cfg": SOAK_CFG,
+                      **summary, **timing})
+    return lines, launches
 
 
 def check_chunks(name, imgs, ids, start, tr, checks):
@@ -2882,7 +3257,17 @@ def main(argv=None) -> int:
           "script_s": time.perf_counter() - t_script})
     emit(breakdown)
 
-    # 19. the kernel table, the card, and the device line (last)
+    # 19. durable serving and chaos: the journal, snapshots, kill and
+    #     recover, the chaos soak
+    t0 = time.perf_counter()
+    lines, launches_dur = durable_server_phase(pps_def, regs, out, dev, card)
+    for line in lines:
+        emit(line)
+    emit({"phase": "durable_server_done", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "script_s": time.perf_counter() - t_script})
+
+    # 20. the kernel table, the card, and the device line (last)
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -2899,7 +3284,10 @@ def main(argv=None) -> int:
          "launches_by_path": {"main_path": launches_k3,
                               "admission": launches_adm["K3"],
                               "compact": launches_cmp["K3"],
-                              "fleet_server": launches_fs["served"]}},
+                              "fleet_server": launches_fs["served"],
+                              "durable_server": launches_dur["durable"]
+                              + launches_dur["kill_recover"]
+                              + launches_dur["chaos_soak"]}},
         {"name": "megastep_chunk K2 (traced, policy gate)", **common,
          "launches": launches_k2, "max_abs_err": err_by["K2"],
          "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
@@ -2910,7 +3298,9 @@ def main(argv=None) -> int:
                               "compact": launches_cmp["K2"],
                               "fleet_server": sum(
                                   n for arm, n in launches_fs.items()
-                                  if arm != "served")}},
+                                  if arm != "served"),
+                              "durable_server":
+                                  launches_dur["traced_recover"]}},
         {"name": "flash_attention (qwen3-1.7b prefill)", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",

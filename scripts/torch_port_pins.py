@@ -36,6 +36,19 @@ unscheduled and scheduled (every published state checked against its
 solo ``run_prepared``); then one C3 request on the scheduled server,
 checked against ``run_with_c3``.  1-3.5 minutes a run on a CPU, four
 runs (~8 minutes).
+
+The durable half (``--only durable``) drives the JAX server through
+chip_smoke.py's ``durable_server`` helpers (``durable_census``,
+``kill_and_recover``, ``chaos_census``): the census at 400 lanes plain
+and durable (snapshots, journal records, the publication ledger; both
+runs' states checked against the census pin), killed after 11
+generations and recovered (the kill generation, the replayed generations
+and results; the union checked against the census), ``served_traced``
+durable and killed at generation 11 (the records by rid checked against
+the census stream, 0 dropped), and the chaos soak at 128 lanes (its
+ledger summary and the rids whose published state a bit-flip reached,
+each checked to differ from its census lane by exactly one injected
+bit).  ~30 minutes on a CPU.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ import argparse
 import importlib.util
 import json
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -58,13 +72,16 @@ from repro.core import (HookConfig, Mechanism, fleet, pack_fleet,  # noqa: E402
                         prepare, programs, run_fleet_prepared, run_prepared,
                         run_with_c3)
 from repro.sched import PolicyScheduler, TenantBudget  # noqa: E402
+from repro.serve.chaos import ChaosMonkey  # noqa: E402
+from repro.serve.durability import DurabilityManager  # noqa: E402
 from repro.serve.fleet_server import FleetServer  # noqa: E402
 from repro.trace import TraceStream  # noqa: E402
 
 JAX = types.SimpleNamespace(
     FleetServer=FleetServer, PolicyScheduler=PolicyScheduler,
     TenantBudget=TenantBudget, prepare=prepare, programs=programs,
-    Mechanism=Mechanism)
+    Mechanism=Mechanism, HookConfig=HookConfig,
+    DurabilityManager=DurabilityManager, ChaosMonkey=ChaosMonkey)
 
 
 def _chip_smoke():
@@ -196,16 +213,101 @@ def server_pins(smoke) -> dict:
     return out
 
 
+def _by_rid_sha(smoke, results) -> str:
+    """The census digest of published states stacked by rid."""
+    by_rid = sorted(results, key=lambda r: r.rid)
+    return smoke.digest(fleet.stack_states([r.state for r in by_rid]))
+
+
+def durable_pins(smoke) -> dict:
+    grid = census_grid()
+    cells = _prepare_cells()
+    pps = [cells[(g[0], g[3])] for g in grid]
+    regs = [{19: g[4]} for g in grid]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        _, plain, _ = smoke.durable_census(JAX, pps, regs)
+        srv, res, _ = smoke.durable_census(JAX, pps, regs, tmp / "durable")
+        for arm, r in (("plain", plain), ("durable", res)):
+            if _by_rid_sha(smoke, r) != smoke.CENSUS_DEFAULT_SHA256:
+                raise AssertionError(f"durable {arm}: states differ from "
+                                     "the census")
+        if (smoke.publication_ledger(res)
+                != smoke.publication_ledger(plain)):
+            raise AssertionError("durable ledger != plain ledger")
+        out["durable"] = smoke.durable_summary(srv, res)
+        out["durable_s"] = time.perf_counter() - t0
+        census = {r.rid: r.state for r in res}
+
+        def make():
+            s = FleetServer(pool=smoke.DUR_POOL, gen_steps=smoke.FS_GEN_STEPS,
+                            chunk=smoke.CHUNK, fuel=smoke.FUEL,
+                            cfg=HookConfig(
+                                snapshot_interval=smoke.DUR_INTERVAL),
+                            durability=DurabilityManager(tmp / "victim"))
+            for pp, rg in zip(pps, regs):
+                s.submit(pp, regs=rg)
+            return s
+        t0 = time.perf_counter()
+        _, union, counts, _, _ = smoke.kill_and_recover(
+            JAX, make, tmp / "victim", smoke.DUR_KILL)
+        if _by_rid_sha(smoke, union.values()) != smoke.CENSUS_DEFAULT_SHA256:
+            raise AssertionError("kill_recover: states differ from the "
+                                 "census")
+        out["kill_recover"] = counts
+        out["kill_recover_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        srv, union, counts, _, before = smoke.kill_and_recover(
+            JAX, lambda: smoke.census_server(
+                JAX, pps, regs, trace=True, stream=True, compact=True,
+                obs=True, durability=DurabilityManager(tmp / "traced")),
+            tmp / "traced", smoke.TRACED_KILL, watch=smoke.obs_watermark)
+        below = smoke.not_below(smoke.obs_watermark(srv), before)
+        if (smoke.records_digest(union.values()) != smoke.STREAMED_SHA256
+                or srv.stats()["stream"]["records_dropped"] or below
+                or _by_rid_sha(smoke, union.values())
+                != smoke.CENSUS_DEFAULT_SHA256):
+            raise AssertionError(f"traced_recover differs: {below}")
+        out["traced_recover"] = {
+            **counts, "records": sum(len(r.trace) for r in union.values())}
+        out["traced_recover_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        srv, got = smoke.chaos_census(JAX, pps, regs, tmp / "soak")
+        summary = smoke.soak_summary(srv)
+        escaped = []
+        for rid, r in sorted(got.items()):
+            if _equal_leaves(r.state, census[rid]):
+                continue
+            bad = [f for f, a, b in zip(r.state._fields, r.state,
+                                        census[rid])
+                   if not np.array_equal(np.asarray(a), np.asarray(b))]
+            if bad != ["mem"] or not smoke.injected_flip(
+                    r.state.mem, census[rid].mem, srv._chaos.injections):
+                raise AssertionError(f"soak rid {rid}: {bad} differ from "
+                                     "the census beyond an injected flip")
+            escaped.append(rid)
+        if set(got) | set(summary["shed_rids"]) != set(range(len(pps))):
+            raise AssertionError("soak: a request neither published nor "
+                                 "shed")
+        out["chaos_soak"] = {**summary, "escaped_flip_rids": escaped}
+        out["chaos_soak_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="exit 1 unless chip_smoke.py's pins match")
-    ap.add_argument("--only", choices=("census", "server"), default=None,
-                    help="recompute one half only")
+    ap.add_argument("--only", choices=("census", "server", "durable"),
+                    default=None, help="recompute one part only")
     args = ap.parse_args(argv)
     smoke = _chip_smoke()
     got, want = {}, {}
-    if args.only != "server":
+    if args.only in (None, "census"):
         got.update(census_pins(smoke))
         want.update({"census": smoke.CENSUS_DEFAULT_EXPECTED,
                      "census_sha256": smoke.CENSUS_DEFAULT_SHA256,
@@ -215,7 +317,13 @@ def main(argv=None) -> int:
                      "streamed_sha256": smoke.STREAMED_SHA256,
                      "compact_stats": smoke.COMPACT_STATS,
                      "compact_stats_traced": smoke.COMPACT_STATS_TRACED})
-    if args.only != "census":
+    if args.only in (None, "durable"):
+        got.update(durable_pins(smoke))
+        want.update({"durable": smoke.DURABLE_EXPECTED,
+                     "kill_recover": smoke.KILL_RECOVER_EXPECTED,
+                     "traced_recover": smoke.TRACED_RECOVER_EXPECTED,
+                     "chaos_soak": smoke.CHAOS_SOAK_EXPECTED})
+    if args.only in (None, "server"):
         got.update(server_pins(smoke))
         want.update({"served": smoke.FS_SERVED_EXPECTED,
                      "served_traced": smoke.FS_TRACED_EXPECTED,

@@ -16,9 +16,10 @@ drivers around it: run to halt (:func:`run_fleet`), bounded spans
 (:func:`run_fleet_span`), lane admission and restore into a running
 fleet (:func:`admit_lanes`, :func:`restore_lanes`, :func:`set_image_row`,
 :func:`update_policy_rows`), streamed trace harvest
-(:func:`run_fleet_stream`) and live-lane compaction
-(:func:`run_fleet_compact`).  Lane sharding is a later slice; ``shard=``
-raises ``NotImplementedError``.
+(:func:`run_fleet_stream`), live-lane compaction
+(:func:`run_fleet_compact`) and the durable server's carry digests and
+snapshot packing (:func:`carry_digest`, :func:`pack_carry`).  Lane
+sharding is a later slice; ``shard=`` raises ``NotImplementedError``.
 
 Carry semantics: the big planes (``mem``, ``k_ino_data``, the trace ring
 and histogram) are updated in place (never copied per step); the drivers
@@ -32,7 +33,8 @@ to the JAX package's fleet engine.
 from __future__ import annotations
 
 import functools
-from typing import List, NamedTuple, Optional, Sequence
+import zlib
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1328,3 +1330,128 @@ def unpack_images(imgs: FleetImages) -> DecodedImage:
         op=f32(0, 0x3F), rd=f32(6, 0x1F), rn=f32(11, 0x1F),
         rm=f32(16, 0x1F), sh=f32(22, 0x3F), cond=f32(28, 0xF),
         sf=f32(32, 0x1), imm=imgs.imm.to("cpu", copy=True))
+
+
+# ---------------------------------------------------------------------------
+# durable-serving helpers (the device side of repro_torch.serve.durability)
+# ---------------------------------------------------------------------------
+#
+# A fleet snapshot is the WHOLE carry — MachineState tree, optional
+# TraceState tree — moved to the host as a flat {key: np.ndarray} dict,
+# plus a full-coverage digest.  The digest does not reuse the checkpoint
+# manager's prefix hash (the first 64KB of each leaf): the chaos harness
+# must catch a single flipped bit anywhere in a [B, MEM_WORDS] memory
+# plane, so every byte takes part.  crc32 is enough: corruption
+# detection inside one trust domain, not an authenticated hash.  Both
+# digests and the packed arrays equal the JAX package's for equal carries.
+
+def _host(leaf) -> np.ndarray:
+    """A contiguous host copy of one leaf (the carry changes in place, so
+    nothing kept on the host may be a view of it)."""
+    return leaf.detach().to("cpu", copy=True).contiguous().numpy()
+
+
+def _trees(states: MachineState, trace: Optional[TraceState]):
+    return (states,) if trace is None else (states, trace)
+
+
+def carry_digest(states: MachineState,
+                 trace: Optional[TraceState] = None) -> int:
+    """Full-coverage crc32 over every byte of a fleet carry (machine state
+    tree + optional trace tree), each leaf framed by its key, shape and
+    dtype so a reshaped carry of equal bytes does not collide.  The
+    detector of chaos-injected bit-flips in :mod:`repro_torch.serve.
+    durability`; one host copy of each leaf."""
+    crc = 0
+    for tree in _trees(states, trace):
+        for key, leaf in zip(tree._fields, tree):
+            a = _host(leaf)
+            crc = zlib.crc32(f"{key}:{a.shape}:{a.dtype};".encode(), crc)
+            crc = zlib.crc32(memoryview(np.ascontiguousarray(a)).cast("B"),
+                             crc)
+    return crc
+
+
+def lane_digests(states: MachineState,
+                 trace: Optional[TraceState] = None) -> List[int]:
+    """Per-lane crc32s of a fleet carry — :func:`carry_digest` restricted
+    to lane ``b`` of every leaf, unframed.  Lets a rollback attribute a
+    corrupted carry to the lanes (and so tenants) whose bytes diverged."""
+    host = [_host(leaf) for tree in _trees(states, trace) for leaf in tree]
+    out = []
+    for b in range(int(states.halted.shape[0])):
+        crc = 0
+        for a in host:
+            crc = zlib.crc32(memoryview(np.ascontiguousarray(a[b])).cast("B"),
+                             crc)
+        out.append(crc)
+    return out
+
+
+# Big mostly-zero planes stored as nonzero (idx, val) pairs in snapshots.
+_SPARSE_CARRY = ("mem", "k_ino_data")
+
+
+def pack_carry(states: MachineState, trace: Optional[TraceState] = None,
+               *, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Flatten a fleet carry (or one lane of it) into snapshot arrays:
+    ``state/<field>`` and ``trace/<field>`` host copies, with the
+    mostly-zero big planes — the memory leaf and the inode data plane —
+    stored sparsely (``state/<f>@idx`` flat nonzero indices, ascending,
+    ``state/<f>@val`` their values, ``state/<f>@shape``).  The nonzeros
+    are found where the carry lives, so only the pairs cross to the
+    host: a 400-lane pool's dense memory plane is 105 MB.
+    :func:`unpack_carry` reverses both encodings."""
+    out: Dict[str, np.ndarray] = {}
+    for f in _SPARSE_CARRY:
+        dense = getattr(states, f)
+        flat = dense.reshape(-1)
+        idx = torch.nonzero(flat).reshape(-1)
+        out[f"{prefix}state/{f}@idx"] = _host(idx)
+        out[f"{prefix}state/{f}@val"] = _host(flat.index_select(0, idx))
+        out[f"{prefix}state/{f}@shape"] = np.asarray(tuple(dense.shape),
+                                                     np.int64)
+    for key, leaf in zip(states._fields, states):
+        if key not in _SPARSE_CARRY:
+            out[f"{prefix}state/{key}"] = _host(leaf)
+    if trace is not None:
+        for key, leaf in zip(trace._fields, trace):
+            out[f"{prefix}trace/{key}"] = _host(leaf)
+    return out
+
+
+def unpack_carry(arrays, *, prefix: str = "", device=None
+                 ) -> Tuple[MachineState, Optional[TraceState]]:
+    """Rebuild ``(MachineState, TraceState | None)`` from
+    :func:`pack_carry` arrays, as fresh tensors on ``device`` (``None``
+    means the card); the sparse planes are filled in there."""
+    dev = resolve_device(device)
+
+    def fresh(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    fields = {}
+    for f in _SPARSE_CARRY:
+        shape = tuple(int(x) for x in arrays[f"{prefix}state/{f}@shape"])
+        dense = torch.zeros(int(np.prod(shape)), dtype=I64, device=dev)
+        dense[fresh(arrays[f"{prefix}state/{f}@idx"])] = \
+            fresh(arrays[f"{prefix}state/{f}@val"])
+        fields[f] = dense.reshape(shape)
+    for key in MachineState._fields:
+        if key not in _SPARSE_CARRY:
+            fields[key] = fresh(arrays[f"{prefix}state/{key}"])
+    states = MachineState(**fields)
+    if f"{prefix}trace/count" not in arrays:
+        return states, None
+    return states, TraceState(**{key: fresh(arrays[f"{prefix}trace/{key}"])
+                                 for key in TraceState._fields})
+
+
+def flip_bit(states: MachineState, lane: int, word: int,
+             bit: int) -> MachineState:
+    """Flip one bit of one lane's memory plane, in place where the carry
+    lives (no host copy of the plane) — the chaos harness's injected
+    carry corruption, which :func:`carry_digest` must catch.  Returns
+    ``states``."""
+    states.mem[lane, word] ^= int(np.int64(1) << np.int64(bit))
+    return states

@@ -51,6 +51,16 @@ serving layer over it:
   (:func:`repro_torch.core.fleet.compact_ladder`); the physical-lane ->
   request mapping is tracked host-side, so published results are
   bit-identical to the fixed-width server's.
+* **Durable serving and chaos (repro_torch.serve.durability / .chaos).**
+  With ``durability=`` (a :class:`~repro_torch.serve.durability.
+  DurabilityManager`) every submit, shed, policy update and generation is
+  journaled write-ahead and the whole server snapshotted every
+  ``snapshot_interval`` generations; :meth:`FleetServer.recover` rebuilds
+  a killed server from its directory and replays the journal tail to the
+  same results.  With ``chaos=`` (a :class:`~repro_torch.serve.chaos.
+  ChaosMonkey`) seeded faults fire before a generation's launches and are
+  retried, load-shed with a reason, rewritten or rolled back.  The files
+  are the JAX package's.
 
 The carry is mutable here, unlike the JAX package's: the kernel,
 ``admit_lanes`` and ``restore_lanes`` write its leaves in place, and
@@ -59,13 +69,13 @@ lane tree the server keeps — a preemption checkpoint, a published
 ``FleetResult.state`` — is a copy that no later generation touches.
 
 ``device=None`` means the card; the server passes its device to every
-fleet call.  Durable serving (``durability=``, ``recover``), chaos
-injection (``chaos=``) and lane sharding (``shard=True``) are not ported
-yet and raise ``NotImplementedError``.
+fleet call.  Lane sharding (``shard=True``) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Sequence
 
@@ -166,8 +176,7 @@ class FleetServer:
     generation (scheduling granularity — results are invariant to it);
     ``table_capacity`` bounds how many distinct binaries can be resident at
     once (pool width + expected diversity).  ``device=None`` means the
-    card.  ``shard=True``, ``durability=`` and ``chaos=`` are not ported
-    yet and raise.
+    card.  ``shard=True`` is not ported yet and raises.
     """
 
     def __init__(self, pool: int = 8, *, cfg: Optional[HookConfig] = None,
@@ -183,14 +192,6 @@ class FleetServer:
                  engine: Optional[str] = None,
                  device=None):
         assert pool >= 1
-        if durability is not None:
-            raise NotImplementedError(
-                "durability= is not ported yet (durable serving, ROADMAP "
-                "Queue 1 item 5)")
-        if chaos is not None:
-            raise NotImplementedError(
-                "chaos= is not ported yet (chaos injection, ROADMAP Queue 1 "
-                "item 5)")
         self.pool = pool
         self.cfg = cfg or HookConfig()
         self.gen_steps = int(self.cfg.serve_gen_steps if gen_steps is None
@@ -275,6 +276,15 @@ class FleetServer:
         # the first-admission waits above — a request can appear in both
         self._resume_wait_gens: List[int] = []
         self._resume_wait_s: List[float] = []
+        # durable serving (repro_torch.serve.durability) + chaos injection
+        self.retries = 0                         # dispatch attempts re-run
+        self.rollbacks = 0                       # carry rollbacks to snapshot
+        self.shed_requests = 0                   # load-shed (rejected) reqs
+        self.recovery_generations = 0            # generations replayed
+        self.watchdog_trips = 0                  # wall-clock budget blown
+        self.shed: List[dict] = []               # rejected-with-reason ledger
+        self._dur = None                         # DurabilityManager
+        self._chaos = None                       # ChaosMonkey
 
         # Physical lane pool.  ``_order[p]`` is the logical slot backed by
         # physical lane ``p``; the carry has width ``_W == len(_order)``.
@@ -309,6 +319,14 @@ class FleetServer:
         # the port's kernel serves every width, so admissions are not
         # padded
         self._pad_state = M.make_state(0, fuel=0)
+        # durability first (chaos.attach checks for it: bitflip/corruption
+        # injection is only answerable with snapshots to roll back to)
+        if durability is not None:
+            self._dur = durability
+            durability.attach(self)
+        if chaos is not None:
+            self._chaos = chaos
+            chaos.attach(self)
 
     def precompile_ladder(self) -> List[int]:
         """Make every rung ready before serving (on the card: the kernel
@@ -353,7 +371,9 @@ class FleetServer:
         and the latency SLO in simulated steps from submission.  Defaults
         come from the request config (``cfg.tenant`` etc.); without a
         ``scheduler=`` hook they are recorded but drive nothing.
-        Scheduling kwargs are validated eagerly.
+        Scheduling kwargs are validated eagerly.  A durable server
+        journals the request before any generation can see it, and
+        refuses a builder it could not resolve again after a restart.
         """
         if tenant is not None and not isinstance(tenant, str):
             raise ValueError(
@@ -406,6 +426,10 @@ class FleetServer:
             mechanism, virtualize = app.mechanism, app.virtualize
         else:
             builder = app
+            if self._dur is not None:
+                # a journaled request must be reconstructable: refuse an
+                # unserialisable builder now, not at recovery time
+                self._dur.check_builder(builder)
             pp = prepare(builder(), mechanism, virtualize=virtualize, cfg=rcfg)
         req = FleetRequest(
             rid=self._next_rid, pp=pp, builder=builder, cfg=rcfg,
@@ -426,7 +450,22 @@ class FleetServer:
         if self._obs is not None:
             self._obs.spans.submit(str(req.rid), req.tenant or "default",
                                    req.submitted_s)
+        if self._dur is not None:
+            self._dur.on_submit(self, req)       # write-ahead: durable
+            # before any generation can observe the request
         return req.rid
+
+    def _restore_submit(self, req: FleetRequest) -> None:
+        """Journal-replay intake: re-enqueue an already-journaled request
+        without re-journaling it (repro_torch.serve.durability)."""
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        self._tstat(req.tenant)["submitted"] += 1
+        self._queue.append(req)
+        if self._obs is not None:
+            # span dedup makes this idempotent: a rid whose lifecycle the
+            # snapshot already closed records nothing on replay
+            self._obs.spans.submit(str(req.rid), req.tenant or "default",
+                                   req.submitted_s)
 
     def update_policy(self, tenant: str,
                       rules: Sequence[PolicyRule]) -> int:
@@ -466,6 +505,8 @@ class FleetServer:
                 req.checkpoint = (state, tr)
         self.policy_updates += 1
         self._tstat(tenant)["policy_updates"] += 1
+        if self._dur is not None:
+            self._dur.on_update_policy(self, tenant, list(rules))
         return n_live
 
     # -- the serving loop -----------------------------------------------------
@@ -1067,10 +1108,90 @@ class FleetServer:
                                     *pending[1:])
             self._stream.flush()
 
+    def _drop_request(self, req: FleetRequest, reason: str) -> None:
+        """Load-shed one queued request: reject-with-reason, releasing any
+        image-table row its frozen checkpoint still holds."""
+        if req.checkpoint is not None and req.row >= 0:
+            self.table.release(req.row)
+        if self._stream is not None:
+            self._stream.pop(req.rid)  # release any buffered records
+        self.shed.append({"rid": req.rid, "tenant": req.tenant,
+                          "reason": reason, "generation": self.generation})
+        if self._obs is not None:
+            self._obs.spans.event(str(req.rid), "shed",
+                                  req.tenant or "default")
+        self.shed_requests += 1
+        self._tstat(req.tenant)["shed"] += 1
+        if self._dur is not None:
+            self._dur.on_shed(self, req, reason)
+
+    def _shed_queue(self, reason: str) -> None:
+        """Reject every queued request (retries exhausted: the server
+        cannot currently dispatch, so holding the queue would just
+        time-out clients silently)."""
+        while self._queue:
+            self._drop_request(self._queue.popleft(), reason)
+
+    def _apply_shed(self, rid: int, reason: str) -> None:
+        """Journal-replay twin of a shed record."""
+        for req in list(self._queue):
+            if req.rid == rid:
+                self._queue.remove(req)
+                self._drop_request(req, reason)
+                return
+
+    def _skip_generation(self, reason: str) -> None:
+        """Tick the generation clock without dispatching — the
+        retries-exhausted path.  ``gen_steps`` invariance makes a skipped
+        dispatch semantics-free: lanes just run those steps in a later
+        generation."""
+        self.generation += 1
+        self.idle_generations += 1
+
+    def _replay_skipped_generation(self) -> None:
+        """Journal-replay twin of a skipped generation: the pre-dispatch
+        phases (scheduling, re-bucket, admissions) DID run live before
+        the dispatch gave up, so replay must run them too — otherwise
+        admission timing (``admitted_gen``) would diverge."""
+        if self.sched is not None:
+            self._sched_pass()
+        self._rebucket()
+        self._admit_pending()
+        self._skip_generation("replay")
+
+    def _adopt(self, other: "FleetServer") -> None:
+        """Become ``other`` (a replica recovered from disk on the same
+        device): the chaos rollback path.  Durability/chaos wiring and
+        cumulative chaos-era counters stay ours; everything the replay
+        rebuilt — carry, image table, stream, slots, queue, scheduler,
+        tenant stats — is taken wholesale.  The replica's carry becomes
+        ours, not a copy: nothing else holds it once the replica is
+        dropped, and every span builds the kernel's arguments (pointers
+        and decode table) anew from the carry it is given."""
+        keep = {"_dur", "_chaos", "retries", "rollbacks", "shed_requests",
+                "recovery_generations", "watchdog_trips",
+                # the live hub's counters/spans are cumulative (and
+                # monotone); the replica's replay-era copy would regress
+                # the phase timings the corrupted window already recorded
+                "_obs"}
+        for k, v in other.__dict__.items():
+            if k not in keep:
+                self.__dict__[k] = v
+
     def step(self) -> List[FleetResult]:
         """One generation: scheduler pass (evict/exhaust/preempt) ->
         re-bucket -> admit -> one bounded dispatch at the occupancy-chosen
         width -> harvest.
+
+        With chaos attached the dispatch is wrapped in a bounded
+        exponential-backoff retry loop: injected faults (raised *before*
+        the generation's first launch, so the carry is untouched) are
+        retried up to ``cfg.chaos_max_retries`` extra attempts, then the
+        queue is load-shed with a reason and the generation skipped.  A
+        real error (a failed build or launch, a CUDA error) is never
+        chaos: it is raised, not retried.  With durability attached every
+        generation (dispatched, idle or skipped) is journaled so replay
+        re-walks the same sequence.
 
         An observed server (``repro_torch.obs``) times the whole generation
         and each stage of it through the phase profiler, refreshes the
@@ -1101,29 +1222,77 @@ class FleetServer:
                 # generation clock so backoffs expire (no dispatch)
                 self.generation += 1
                 self.idle_generations += 1
+                if self._dur is not None:
+                    return self._dur.after_generation(self, [])
             return []
-        self._dispatch(self._ids[self._order])
-        self.dispatches += 1
-        self.generation += 1
-        if self._obs is not None:
-            # split the device wait out of the harvest readbacks so the
-            # breakdown separates "the card still computing" from
-            # "host-side publish work" (harvest would block on its first
-            # copy anyway: this moves the wait, it does not add one)
-            with self._phase("device_sync"):
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-        with self._phase("harvest"):
-            return self._harvest()
+        ids = self._ids[self._order]
+        if self._dur is not None:
+            with self._phase("journal_append"):
+                self._dur.before_dispatch(self)
+        skipped = False
+        if self._chaos is None:
+            self._dispatch(ids)
+        else:
+            tries, faults = 0, []
+            while True:
+                try:
+                    # faults fire before the first launch: the kernel
+                    # writes the carry in place, so a retry must start
+                    # from an untouched one
+                    self._chaos.pre_dispatch(self)
+                    self._dispatch(ids)
+                    if faults:
+                        self._chaos.resolve(faults, "retried")
+                    break
+                except Exception as e:
+                    kind = getattr(e, "chaos_kind", None)
+                    if kind is None:
+                        raise                    # a real error, not chaos
+                    faults.append(e.injection_id)
+                    if kind == "watchdog":
+                        self.watchdog_trips += 1
+                    tries += 1
+                    self.retries += 1
+                    if tries > self.cfg.chaos_max_retries:
+                        self._chaos.resolve(faults, "shed")
+                        self._shed_queue(f"retries_exhausted:{kind}")
+                        skipped = True
+                        break
+                    with self._phase("retry_backoff"):
+                        time.sleep(self.cfg.chaos_backoff_base_ms
+                                   * (1 << (tries - 1)) / 1000.0)
+        if skipped:
+            self._skip_generation("retries_exhausted")
+            results: List[FleetResult] = []
+        else:
+            self.dispatches += 1
+            self.generation += 1
+            if self._obs is not None:
+                # split the device wait out of the harvest readbacks so the
+                # breakdown separates "the card still computing" from
+                # "host-side publish work" (harvest would block on its
+                # first copy anyway: this moves the wait, it does not add
+                # one)
+                with self._phase("device_sync"):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+            with self._phase("harvest"):
+                results = self._harvest()
+        if self._dur is not None:
+            results = self._dur.after_generation(self, results,
+                                                 skipped=skipped)
+        return results
 
     @classmethod
     def recover(cls, directory, *, builders: Optional[Dict] = None,
-                chaos=None, fsync: Optional[bool] = None):
-        """Rebuild a crashed durable server from its durability directory:
-        not ported yet."""
-        raise NotImplementedError(
-            "FleetServer.recover is not ported yet (durable serving, "
-            "ROADMAP Queue 1 item 5)")
+                chaos=None, fsync: Optional[bool] = None, device=None):
+        """Rebuild a crashed durable server from its durability directory
+        on ``device`` (``None`` means the card); returns ``(server,
+        replayed_results)``.  See :func:`repro_torch.serve.durability.
+        recover`."""
+        from . import durability as D
+        return D.recover(directory, builders=builders, chaos=chaos,
+                         fsync=fsync, device=device)
 
     def run(self, max_generations: int = 1_000_000) -> List[FleetResult]:
         """Serve until the queue and every lane drain; results in
@@ -1237,28 +1406,29 @@ class FleetServer:
                               if self.sched is not None else []),
             "quarantine": (self.sched.quarantine.state()
                            if self.sched is not None else None),
-            # durable serving and chaos injection: not ported yet, so
-            # their keys keep the values of a server without them
-            "durability_enabled": False,
-            "chaos_enabled": False,
-            "retries": 0,
-            "rollbacks": 0,
-            "shed_requests": 0,
-            "shed": [],
-            "recovery_generations": 0,
-            "watchdog_trips": 0,
-            "snapshots": 0,
-            "snapshot_bytes": 0,
-            "snapshot_rewrites": 0,
-            "journal_records": 0,
-            "chaos": None,
+            # durable serving (repro_torch.serve.durability) + chaos
+            "durability_enabled": self._dur is not None,
+            "chaos_enabled": self._chaos is not None,
+            "retries": self.retries,
+            "rollbacks": self.rollbacks,
+            "shed_requests": self.shed_requests,
+            "shed": [dict(s) for s in self.shed],
+            "recovery_generations": self.recovery_generations,
+            "watchdog_trips": self.watchdog_trips,
+            "snapshots": (self._dur.snapshots if self._dur else 0),
+            "snapshot_bytes": (self._dur.snapshot_bytes if self._dur else 0),
+            "snapshot_rewrites": (self._dur.snapshot_rewrites
+                                  if self._dur else 0),
+            "journal_records": (self._dur.journal.records
+                                if self._dur and self._dur.journal else 0),
+            "chaos": (self._chaos.summary() if self._chaos else None),
             "obs_enabled": self._obs is not None,
         }
 
     def _refresh_gauges(self) -> None:
         """Mirror the serving ledgers into the registry so one scrape
-        covers occupancy, step accounting, pool geometry and quarantine
-        pressure."""
+        covers occupancy, step accounting, pool geometry, quarantine
+        pressure and journal growth."""
         ob = self._obs
         if ob is None:
             return
@@ -1283,6 +1453,11 @@ class FleetServer:
             g("sched_quarantine_depth",
               "tenants waiting out backoff").set(
                 self.sched.quarantine.depth(self.generation))
+        if self._dur is not None and self._dur.journal is not None:
+            g("journal_bytes", "write-ahead journal size").set(
+                self._dur.journal.bytes_written)
+            g("journal_records", "write-ahead journal records").set(
+                self._dur.journal.records)
 
     def metrics(self, fmt: str = "dict"):
         """The observability surface (``repro_torch.obs``): the registry

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 megastep, flash attention, flash-decode, the RG-LRU scan and the mLSTM,
-and the LM serving paths (attention-only, hybrid and xLSTM).
+the LM serving paths (attention-only, hybrid and xLSTM), and the fleet
+server's durable and chaos paths.
 
 These tests need a CUDA card and skip without one (a skip is not a pass).
 They import no JAX, so they run on the machine with the card:
@@ -11,6 +12,7 @@ They import no JAX, so they run on the machine with the card:
 census size and at qwen3-1.7b's, recurrentgemma-2b's and xlstm-350m's
 full width.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -38,6 +40,9 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref, rglru_scan_seq
 from repro_torch.models import lm
 from repro_torch.models import recurrent as rec
 from repro_torch.sched import PolicyScheduler, TenantBudget
+from repro_torch.serve import durability as D
+from repro_torch.serve.chaos import ChaosMonkey
+from repro_torch.serve.durability import DurabilityManager
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.fleet_server import FleetServer
 from repro_torch.trace import policy as tpolicy
@@ -806,3 +811,146 @@ def test_fleet_server_device_sync_is_a_synchronize(card, monkeypatch):
     assert calls.count(srv.device) >= srv.dispatches
     for a, b in zip(plain, res):
         _assert_equal(a.state, b.state, f"rid {a.rid} observed")
+
+
+# -- durable serving and chaos on the card -----------------------------------
+
+def _durable_server(device, directory, **kw):
+    """tests/test_durability.py's ``_mk_server`` settings on ``device``."""
+    cfg = HookConfig(trace_enabled=True, compact_enabled=True,
+                     snapshot_interval=3, journal_fsync=False)
+    return FleetServer(4, cfg=cfg, gen_steps=48, fuel=25_000,
+                       scheduler=PolicyScheduler(
+                           budgets={"b": TenantBudget(max_svc=12)}),
+                       durability=DurabilityManager(directory), device=device,
+                       **kw)
+
+
+def _durable_feed(srv):
+    P, M = SMOKE.PORT.programs, SMOKE.PORT.Mechanism
+    for _ in range(3):
+        srv.submit(P.getpid_loop_param, mechanism=M.ASC, virtualize=True,
+                   regs={19: 3}, tenant="a", priority=1)
+        srv.submit(P.read_loop_param, mechanism=M.SIGNAL, virtualize=True,
+                   regs={19: 2}, tenant="b")
+        srv.submit(P.mixed_ops_param, mechanism=M.ASC, virtualize=True,
+                   regs={19: 3}, tenant="c", deadline_steps=400)
+
+
+def test_durable_kill_and_recover_on_card_equals_cpu(card, tmp_path):
+    """A durable server on the card killed at generation 4 and recovered
+    there (every generation, replayed ones included, through the megastep
+    kernel) drains to the uninterrupted server's results on CPU tensors."""
+    ref = _durable_server("cpu", tmp_path / "ref")
+    _durable_feed(ref)
+    want = {r.rid: r for r in ref.run(5000)}
+    vic = _durable_server(card, tmp_path / "vic")
+    _durable_feed(vic)
+    pre = [r for _ in range(4) for r in vic.step()]
+    del vic
+    mops.megastep_chunk.launches = 0
+    srv, replayed = FleetServer.recover(tmp_path / "vic", device=card)
+    assert srv._states.pc.device.type == srv.device.type
+    union = {r.rid: r for r in pre + replayed + srv.run(5000)}
+    assert mops.megastep_chunk.launches > 0
+    assert set(union) == set(want)
+    for rid, r in want.items():
+        _assert_equal(r.state, _to_cpu(union[rid].state), f"rid {rid}")
+        assert [dataclasses.astuple(t) for t in r.trace] == \
+            [dataclasses.astuple(t) for t in union[rid].trace]
+    st_, rst = srv.stats(), ref.stats()
+    for k in ("tenants", "completed", "evictions", "quarantine"):
+        assert st_[k] == rst[k], k
+
+
+# tests/test_durability.py's soak, its programs and settings, as the JAX
+# package runs it (CPU): the injection ledger's summary and sha256 of
+# json.dumps(ledger, sort_keys=True), and the server's counters.
+SOAK_LEDGER = {
+    "summary": {"injections": 206,
+                "by_kind": {"corrupt": 38, "bitflip": 60, "hang": 25,
+                            "dispatch": 83},
+                "by_resolution": {"rewritten": 36, "rolled_back": 60,
+                                  "retried": 108, "harmless": 2},
+                "unresolved": 0},
+    "sha256": "9029dc64b7551bb9eacf223bed2b3621ff168ca59cfce9cdf95c090e3088baf1",
+    "stats": {"generations": 536, "rollbacks": 60, "retries": 108,
+              "recovery_generations": 3458764513820540925,
+              "watchdog_trips": 25, "snapshots": 178,
+              "snapshot_rewrites": 36, "shed_requests": 0}}
+
+
+def test_chaos_soak_on_card_matches_the_jax_ledger(card, tmp_path):
+    """The reference soak on the card: every injection resolved, every
+    non-shed result equal to the solo run, the ledger the JAX server's
+    (bit-flips in place in the card's carry, rollbacks adopting a replica
+    recovered on the card)."""
+    import hashlib
+    import json
+    P = SMOKE.PORT.programs
+    cfg = HookConfig(trace_enabled=True, snapshot_interval=3,
+                     journal_fsync=False, chaos_max_retries=2,
+                     chaos_backoff_base_ms=0, serve_watchdog_s=0.001,
+                     chaos_seed=7, chaos_dispatch_fault_rate=0.12,
+                     chaos_hang_rate=0.04, chaos_bitflip_rate=0.35,
+                     chaos_snapshot_corrupt_rate=0.25)
+    if "dur-getpid" not in D.BUILDERS:
+        D.register_builder("dur-getpid", lambda: P.getpid_loop(300))
+    srv = FleetServer(4, cfg=cfg, gen_steps=64, fuel=25_000,
+                      durability=DurabilityManager(tmp_path / "d"),
+                      chaos=ChaosMonkey(), device=card)
+    rids = [srv.submit(D.BUILDERS["dur-getpid"], fuel=25_000)
+            for _ in range(6)]
+    out = {}
+    for _ in range(600):
+        if SMOKE.drained(srv):
+            break
+        for r in srv.step():
+            out[r.rid] = r
+    ledger = srv._chaos.injections
+    assert srv._chaos.summary() == SOAK_LEDGER["summary"]
+    assert hashlib.sha256(json.dumps(ledger, sort_keys=True).encode()
+                          ).hexdigest() == SOAK_LEDGER["sha256"]
+    st_ = srv.stats()
+    assert {k: st_[k] for k in SOAK_LEDGER["stats"]} == SOAK_LEDGER["stats"]
+    solo = SMOKE.run_prepared(SMOKE.PORT.prepare(
+        P.getpid_loop(300), SMOKE.PORT.Mechanism.ASC), fuel=25_000,
+        device=card)
+    shed = {e["rid"] for e in srv.shed}
+    for rid in rids:
+        if rid not in shed:
+            _assert_equal(_to_cpu(solo), _to_cpu(out[rid].state),
+                          f"soak rid {rid}")
+    assert shed | set(out) >= set(rids)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_carry_digest_on_card_equals_cpu_copy(census_every_tenth, traced):
+    """carry_digest, lane_digests and pack_carry of a scrambled carry on the
+    card equal those of its CPU copy; unpack_carry puts it back on the
+    card; flip_bit flips the card's carry in place."""
+    pps, _, _, _, s0 = census_every_tenth
+    rng = np.random.default_rng(11)
+    code = SMOKE.code_of(pps)
+    s = interop.state_from_numpy(SMOKE.scramble_kern(SMOKE.scramble(
+        interop.state_to_numpy(s0), code, rng), code, rng), s0.pc.device)
+    B = int(s.pc.shape[0])
+    tr = (interop.trace_from_numpy(SMOKE.scramble_trace(
+        B, 16, rng, SMOKE.random_policies(B, rng)), s.pc.device)
+        if traced else None)
+    cs, ct = _clone(_to_cpu(s)), (_clone(_to_cpu(tr)) if traced else None)
+    assert fleet.carry_digest(s, tr) == fleet.carry_digest(cs, ct)
+    assert fleet.lane_digests(s, tr) == fleet.lane_digests(cs, ct)
+    a, b = fleet.pack_carry(s, tr), fleet.pack_carry(cs, ct)
+    assert list(a) == list(b)
+    assert all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+               for k in a)
+    us, ut = fleet.unpack_carry(a, device=s.pc.device)
+    assert us.mem.device == s.mem.device
+    _assert_equal(cs, _to_cpu(us), "unpacked")
+    mem = s.mem
+    fleet.flip_bit(s, 3, 4321, 63)
+    assert s.mem is mem and fleet.lane_digests(s, tr)[3] != \
+        fleet.lane_digests(cs, ct)[3]
+    fleet.flip_bit(cs, 3, 4321, 63)
+    assert fleet.carry_digest(s, tr) == fleet.carry_digest(cs, ct)

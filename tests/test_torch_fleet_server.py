@@ -500,7 +500,7 @@ def test_c3_readmission_under_scheduler_and_compaction():
     assert st_["c3_readmissions"] == 1 and st_["scalar_reexecutions"] == 0
 
 
-# -- the port's own: copies, not views; the unported options raise ----------
+# -- the port's own: copies, not views; the unported option raises ----------
 
 def test_published_state_survives_later_generations():
     """A published state is a copy: the lane it ran on is reused by the
@@ -547,12 +547,8 @@ def test_preemption_checkpoint_survives_later_generations():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        FleetServer(pool=1, durability=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        FleetServer(pool=1, chaos=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        FleetServer.recover("unused")
+    """Only lane sharding is still to port (durability and chaos are in
+    tests/test_torch_durability.py and tests/test_torch_chaos.py)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         FleetServer(pool=2, shard=True, device="cpu")
     st_ = FleetServer(pool=1, device="cpu").stats()
