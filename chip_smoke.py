@@ -50,6 +50,21 @@ every kernel launch counted from 0 just before and read just after:
   the state C, n carried in and out) and every decode step one call of
   the decode step, which writes C and n into the cache in place; the
   sLSTM is plain PyTorch, a loop over time.
+* The other model families, through the same engine and requests, each
+  freed before the next: qwen2-moe-a2.7b at full width and depth (24
+  layers of 60 routed experts, top 4, and 4 shared; 14.32 B parameters),
+  its router, experts and combine PyTorch operations; seamless-m4t-medium
+  at full size (12 encoder and 12 decoder layers, head dim 64; the
+  encoder's zero input of 64 frames) — flash attention for the encoder
+  (non-causal), the decoder's self-attention and its cross-attention
+  prefill (512 queries over 64 frames), flash-decode for the decode
+  step's self- and cross-attention; llava-next-34b at full width and 16
+  of its 60 layers (56 query heads to 8 KV heads; a zero prefix of 64
+  positions before the tokens), flash attention over 576 positions and
+  flash-decode at group 7.
+* Lane sharding: the census through ``run_fleet_prepared(shard=True)``
+  and through sharded and durable sharded fleet servers on every visible
+  card; with one card, the no-op path.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -87,13 +102,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 7. ``table3``: the Table-3 per-call cycles (simulated, deterministic);
 8. ``flash_vs_plain``: flash attention vs its plain version, every case of
    ``tests/test_kernels.py`` plus ragged lengths, dead window rows, head
-   dims 16-256, a 2048 window that binds (S 4096, 10:1 heads of 256) and
-   both serving paths' prefill shapes: bf16 through the tensor-core kernel
-   (2e-2), f32 through the SIMT kernel (2e-5);
+   dims 16-256, a 2048 window that binds (S 4096, 10:1 heads of 256),
+   both serving paths' prefill shapes and the other families' new shapes
+   (``FAMILY_FLASH``): bf16 through the tensor-core kernel (2e-2), f32
+   through the SIMT kernel (2e-5);
 9. ``decode_vs_plain``: flash-decode likewise, kv_len on and off the tile,
-   0 and past the cache, the qwen3-1.7b decode shape, and cases that force
-   one split and many (kv_len 0 and past Skv among them); every case called
-   twice, the two outputs equal bit for bit;
+   0 and past the cache, the qwen3-1.7b decode shape, cases that force
+   one split and many (kv_len 0 and past Skv among them) and the other
+   families' new shapes (``FAMILY_DECODE``); every case called twice, the
+   two outputs equal bit for bit;
 10. ``serve``: the serving path; its tokens; teacher-forced logits of the
     kernel route against the kernels' plain versions on the card (relative
     L2 within 2e-2, tokens equal outside near-ties) and every attention
@@ -133,25 +150,38 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     kernel's chunk of 64; the JAX model's 256 at prefill and 1 at decode;
     the sequential recurrence), which 24 random-weight layers put at
     4-11 %;
-15. ``streamed``: the default census traced through ``run_fleet_stream``
+15-17. ``serve_moe``, ``serve_encdec``, ``serve_vlm``: the other families,
+    each checked as ``serve`` is — launch counts as the model's code
+    implies (flash: every self-attention prefill, encoder layer and
+    cross-attention prefill; flash-decode: every self- and
+    cross-attention decode step), the relative L2 against the plain route
+    held to the larger of 2e-2 and the plain routes' own distance, every
+    attention call within the bf16 bound of its plain version — and, for
+    the MoE, the reference routes taking the kernel route's experts and
+    every token whose own choice would differ at a near-tie of its router
+    logits (a routing flip at a near-tie counts as a token flip at one
+    does); the prefill's dropped slots; each family's prefill and
+    decode ms, peak memory, and the attention kernels at every shape it
+    launched them at (device time, plain, bound, SDPA);
+18. ``streamed``: the default census traced through ``run_fleet_stream``
     into a retaining ``TraceStream`` (cap 64, chunk 128: one chunk a
     span), against the census pin, the JAX package's streamed-record
     count, drops (0) and digest, and phase 6's carry (lifetime counts,
     histograms, each lane's last min(count, 64) records); the driver's ms
     and the host's ms in flips and ``push_block``, beside the traced
     fixed-width driver, in turns;
-16. ``admission``: the default census through a 128-lane pool and a
+19. ``admission``: the default census through a 128-lane pool and a
     32-row ``FleetImageTable`` (``admit_lanes``, spans of 512 steps
     through ``run_fleet_span``, harvest with ``finish_halt_codes``; every
     fourth span 8 running lanes checkpointed, their slots given to queued
     processes, the checkpoints put back later with ``restore_lanes``),
     untraced (K3) and traced (K2): every harvested lane equal to phase 3's
     and phase 6's lanes, every admitted ring empty;
-17. ``compact``: ``run_fleet_prepared(compact=True)`` on the default
+20. ``compact``: ``run_fleet_prepared(compact=True)`` on the default
     census, untraced and traced, against the census pins and the JAX
     package's occupancy ledgers; kernel and driver ms, compacted against
     fixed width, in turns;
-18. ``fleet_server``: ``repro_torch.serve.fleet_server.FleetServer`` on
+21. ``fleet_server``: ``repro_torch.serve.fleet_server.FleetServer`` on
     the card — the census through a 128-lane pool, generations of 512
     steps, untraced (K3; every published state equal to phase 3's lane,
     sha256 by rid the census pin) and traced, streamed, compacted and
@@ -162,7 +192,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     evicted lanes restored bit for bit); one C3 request (0 scalar
     re-executions, events equal to ``run_with_c3``'s) — each against the
     JAX server's pins;
-19. ``durable_server``: ``repro_torch.serve.durability`` and ``.chaos``
+22. ``durable_server``: ``repro_torch.serve.durability`` and ``.chaos``
     on the card, one line an arm, each against the JAX server's pins —
     ``durable`` (benchmarks/durability_overhead.py's census at 400
     lanes, plain then durable at snapshot interval 8: every state the
@@ -177,8 +207,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     settings on the census at 128 lanes: the injection ledger, every
     published state the census lane's but those a bit-flip reached
     before a boundary verified it, which differ by that bit alone);
-20. the kernel table line (the megastep's launches on every path), the
-    card line, then the device line (last).
+23. ``shard``: the census (K3) through ``run_fleet_prepared(shard=True)``,
+    a ``FleetServer(shard=True)`` and a durable one, on every visible
+    card: the census pins, the JAX server's and durable server's pins, the
+    journal's ``open`` record ``shard: true``; ``engine="pallas"`` with
+    ``shard=True`` raises ``ValueError``;
+24. the kernel table line (the megastep's launches on every path, the
+    attention kernels at every family's shapes), the card line, then the
+    device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
@@ -187,6 +223,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -232,11 +269,15 @@ from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
     rglru_scan_ref, rglru_scan_seq)
 from repro_torch.models import layers, lm  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.sched import PolicyScheduler, TenantBudget  # noqa: E402
 from repro_torch.serve.chaos import ChaosMonkey  # noqa: E402
-from repro_torch.serve.durability import DurabilityManager  # noqa: E402
-from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.durability import (  # noqa: E402
+    DurabilityManager, Journal)
+from repro_torch.serve.engine import (  # noqa: E402
+    Request, ServeEngine, model_input)
 from repro_torch.serve.fleet_server import FleetServer  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
 from repro_torch.trace import recorder  # noqa: E402
@@ -552,6 +593,23 @@ MLSTM_CASES = ((2, 128, 1, 64, False), (4, 256, 1, 128, False),
                (3, 1, 2, 96, True), (2, 1, 2, 32, True))
 XL_ARCH = "xlstm-350m"
 XL_PREFILL, XL_DECODE = (8, 512, 4, 512), (8, 1, 4, 512)
+# the other model families, served as qwen3-1.7b is: the MoE at full
+# width and depth (14.32 B parameters, 57.3 GB in f32), the
+# encoder-decoder at full size (its encoder input 512 // 8 = 64 frames),
+# the patch-prefix decoder at full width and VLM_LAYERS of its 60 layers
+# (39.4 GB in f32; all 60 would be 137.6 GB), its prefix 512 // 8 = 64
+# positions before the tokens
+MOE_ARCH = "qwen2-moe-a2.7b"
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_ARCH, VLM_LAYERS = "llava-next-34b", 16
+# their attention shapes that no earlier path runs: the encoder
+# (non-causal, 64 x 64, hd 64), the cross-attention prefill (512 x 64) and
+# decode (the whole 64-frame cache), the prefix-extended prefill (576,
+# GQA 7) and its decode (group 7)
+FAMILY_FLASH = ((8, 64, 64, 16, 16, 64, False, 0),
+                (8, 512, 64, 16, 16, 64, False, 0),
+                (8, 576, 576, 56, 8, 128, True, 0))
+FAMILY_DECODE = ((8, 64, 16, 16, 64, 64), (8, 640, 56, 8, 128, 577))
 
 
 def randn(shape, dtype, rng, device):
@@ -728,10 +786,11 @@ def serve_requests(vocab: int, seed: int = 0) -> list:
 
 
 # the model's attention, RG-LRU scan and mLSTM: on the card, the routes to
-# the kernels
+# the kernels; and the MoE's router
 ATTENTION = lm.attention
 SCAN = rec.rglru_scan
 MLSTM = rec.mlstm_chunk
+ROUTE = moe_lib.route
 # the model's own plain attention (the JAX package's form, bf16
 # probabilities before P V)
 MODEL_ATTENTION = layers.attention_plain
@@ -767,30 +826,36 @@ def seq_mlstm(q, k, v, log_f, log_i, C0, n0, *, chunk, out=None):
 
 
 def teacher_forced(cfg, run, params, toks, plen, tokens, *,
-                   attention=ATTENTION, scan=SCAN, mlstm=MLSTM):
+                   attention=ATTENTION, scan=SCAN, mlstm=MLSTM, route=ROUTE):
     """Prefill logits, then one decode step per new token fed with
-    ``tokens`` (B, n) at positions plen + t, with ``attention``, ``scan``
-    and ``mlstm`` in the places of the model's attention, RG-LRU scan and
-    mLSTM: [(B, V) logits] * (n + 1), with the prefill and per-token
-    decode ms (host clock, synchronised)."""
+    ``tokens`` (B, n) at positions past the prompt (and the prefix of a
+    frontend model), the model's input as the engine builds it, with
+    ``attention``, ``scan``, ``mlstm`` and ``route`` in the places of the
+    model's attention, RG-LRU scan, mLSTM and MoE router: [(B, V) logits]
+    * (n + 1), with the prefill and per-token decode ms (host clock,
+    synchronised)."""
     lm.attention, rec.rglru_scan, rec.mlstm_chunk = attention, scan, mlstm
+    moe_lib.route = route
     try:
+        batch, npfx = model_input(cfg, toks, plen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(cfg, run, params, {"tokens": toks})
+        logits, cache = lm.prefill(cfg, run, params, batch)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         out = [logits]
         t0 = time.perf_counter()
         for t in range(tokens.shape[1]):
             logits, cache = lm.decode_step(cfg, run, params, cache,
-                                           tokens[:, t:t + 1], plen + t)
+                                           tokens[:, t:t + 1],
+                                           plen + npfx + t)
             out.append(logits)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / tokens.shape[1]
     finally:
         lm.attention, rec.rglru_scan, rec.mlstm_chunk = (ATTENTION, SCAN,
                                                           MLSTM)
+        moe_lib.route = ROUTE
     return out, prefill_ms, decode_ms
 
 
@@ -1218,12 +1283,13 @@ def code_words_of(pps) -> int:
 
 def flash_phase(dev, card) -> tuple:
     """Flash attention vs its plain version on the card: every case of
-    FLASH_CASES and both serving paths' prefill shapes, bf16 (the
-    tensor-core kernel) and f32 (the SIMT kernel).  Returns (the phase's
+    FLASH_CASES, both serving paths' prefill shapes and FAMILY_FLASH, bf16
+    (the tensor-core kernel) and f32 (the SIMT kernel).  Returns (the phase's
     line, the largest error)."""
     t0 = time.perf_counter()
     err, n_checks = 0.0, 0
-    for i, case in enumerate(FLASH_CASES + (QWEN_PREFILL, RG_PREFILL)):
+    cases = FLASH_CASES + (QWEN_PREFILL, RG_PREFILL) + FAMILY_FLASH
+    for i, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_inputs(case, dtype, i, dev)
             want = fops.flash_attention_plain(q, k, v, causal=case[6],
@@ -1239,7 +1305,7 @@ def flash_phase(dev, card) -> tuple:
             err = max(err, e)
             n_checks += 1
     return ({"phase": "flash_vs_plain", "card": card, "checks": n_checks,
-             "cases": len(FLASH_CASES) + 2,
+             "cases": len(cases),
              "kernels": {"bfloat16": "flash_tc_kernel (wgmma, TMA)",
                          "float32": "flash_kernel (SIMT)"},
              "over_bound": 0, "max_abs_err": err,
@@ -1248,12 +1314,13 @@ def flash_phase(dev, card) -> tuple:
 
 def decode_phase(dev, card) -> tuple:
     """Flash-decode vs its plain version on the card: every case of
-    DECODE_CASES, the qwen3-1.7b decode shape and DECODE_SPLIT_CASES, f32
-    and bf16; each case called twice, the outputs equal bit for bit.
-    Returns (the phase's line, the largest error)."""
+    DECODE_CASES, the qwen3-1.7b decode shape, DECODE_SPLIT_CASES and
+    FAMILY_DECODE, f32 and bf16; each case called twice, the outputs
+    equal bit for bit.  Returns (the phase's line, the largest error)."""
     t0 = time.perf_counter()
     err, n_checks, splits = 0.0, 0, {}
-    cases = DECODE_CASES + (QWEN_DECODE,) + DECODE_SPLIT_CASES
+    cases = (DECODE_CASES + (QWEN_DECODE,) + DECODE_SPLIT_CASES
+             + FAMILY_DECODE)
     for i, case in enumerate(cases):
         B, Skv, Hq, Hkv, hd, kv_len = case
         splits[str(case)] = dops.split_count(Skv, kv_len, B * Hkv,
@@ -1376,13 +1443,54 @@ def compare_routes(lk, lp, tokens, vocab, rel_bound=None) -> tuple:
     return agree, n_over, worst, rel
 
 
-def serve_main_path(arch, dev, want) -> dict:
-    """One serving path through the entry points a user calls: ``arch`` at
-    full width from seeded random weights, ServeEngine over the seeded
-    requests (after a short warm-up), every kernel's launch count set to 0
-    just before ``generate`` and read just after, held to ``want``; the
-    tokens checked for shape and range.  Returns what the phase needs."""
-    cfg = get_config(arch)
+class KernelShapes:
+    """Counts the attention kernels' calls by shape while it is entered:
+    flash attention by (B, Sq, Skv, Hq, Hkv, hd, causal, window),
+    flash-decode by (B, Skv, Hq, Hkv, hd) with the least kv_len seen (the
+    names the model calls are wrapped; the kernels count their own
+    launches as before)."""
+
+    def __init__(self):
+        self.flash, self.decode, self.kv_len = {}, {}, {}
+
+    def _flash(self, q, k, v, *, causal, window=0):
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+               q.shape[3], bool(causal), int(window))
+        self.flash[key] = self.flash.get(key, 0) + 1
+        return fops.flash_attention(q, k, v, causal=causal, window=window)
+
+    def _decode(self, q, k, v, kv_len):
+        key = (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
+        self.decode[key] = self.decode.get(key, 0) + 1
+        self.kv_len[key] = min(self.kv_len.get(key, kv_len), kv_len)
+        return dops.decode_attention(q, k, v, kv_len)
+
+    def __enter__(self):
+        layers.flash_attention, layers.decode_attention = (self._flash,
+                                                           self._decode)
+        return self
+
+    def __exit__(self, *exc):
+        layers.flash_attention = fops.flash_attention
+        layers.decode_attention = dops.decode_attention
+
+    def cases(self) -> dict:
+        """{("flash", case) | ("decode", case with kv_len): calls}."""
+        out = {("flash", k): n for k, n in self.flash.items()}
+        out.update({("decode", k + (self.kv_len[k],)): n
+                    for k, n in self.decode.items()})
+        return out
+
+
+def serve_main_path(arch, dev, want, cfg=None) -> dict:
+    """One serving path through the entry points a user calls: ``arch``
+    (or ``cfg``, a cut of it) at full width from seeded random weights,
+    ServeEngine over the seeded requests (after a short warm-up), every
+    kernel's launch count set to 0 just before ``generate`` and read just
+    after, held to ``want``, the attention kernels' calls counted by shape
+    too; the tokens checked for shape and range.  Returns what the phase
+    needs."""
+    cfg = cfg or get_config(arch)
     run = RunConfig(decode_budget=SERVE_BUDGET)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -1398,12 +1506,19 @@ def serve_main_path(arch, dev, want) -> dict:
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
+    with KernelShapes() as shapes:
+        outs = eng.generate(reqs)
+        torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
     if launches != want:
         raise AssertionError(f"{arch}: launches {launches}, expected {want}")
+    by_shape = shapes.cases()
+    for name in ("flash", "decode"):
+        if sum(n for (k, _), n in by_shape.items() if k == name) != \
+                launches[name]:
+            raise AssertionError(f"{arch}: {name} calls by shape "
+                                 f"{by_shape} != launches {launches}")
     tokens = np.stack([o.tokens for o in outs])
     if tokens.shape != (SERVE_BATCH, SERVE_NEW) or not (
             (tokens >= 0) & (tokens < cfg.vocab)).all():
@@ -1412,7 +1527,8 @@ def serve_main_path(arch, dev, want) -> dict:
     return {"cfg": cfg, "run": run, "params": params, "reqs": reqs,
             "tokens": tokens, "toks": toks, "plen": plen,
             "fed": torch.from_numpy(tokens.astype(np.int64)).to(dev),
-            "launches": launches, "init_s": init_s, "generate_s": generate_s,
+            "launches": launches, "by_shape": by_shape, "init_s": init_s,
+            "generate_s": generate_s,
             "n_params": sum(x.numel() for x in lm.tree_leaves(params))}
 
 
@@ -1967,6 +2083,214 @@ def serve_xlstm_phase(dev, card) -> tuple:
             "peak_mem_gb": peak_gb,
             "seconds": time.perf_counter() - t_phase}
     return line, {"mlstm": row}
+
+
+def near_tie(hi, lo):
+    """Where two router logits are within twice the elementwise bf16
+    bound: two routes each within the bound may order them either way."""
+    atol, rtol = TOLS[torch.bfloat16]
+    return (hi - lo).abs() <= 2 * (atol + rtol * hi.abs())
+
+
+class RouteLog:
+    """Stands in for the MoE's router during a run on the card: records
+    every call's chosen experts (best first) and counts the slots dropped
+    past capacity in prefill calls (S > 1)."""
+
+    def __init__(self):
+        self.calls, self.prefill_drops, self.prefill_slots = [], 0, 0
+
+    def __call__(self, cfg, p, x):
+        r = ROUTE(cfg, p, x)
+        self.calls.append(r.top_e)
+        if x.shape[1] > 1:
+            self.prefill_drops += moe_lib.drops(r)
+            self.prefill_slots += r.keep.numel()
+        return r
+
+
+class ForcedRoute:
+    """Stands in for the MoE's router in a reference run on the card: the
+    experts a recorded run (``log``) chose, call by call, with this run's
+    own router weights for them, so that the two runs differ by their
+    attention alone (an expert chosen otherwise at a near-tie would send
+    that token, and its row after it, down another path).  Counts the
+    tokens whose own choice differs from the recorded one: at a near-tie
+    (``near``: the recorded k-th choice's logit and this run's own k-th
+    within twice the bf16 bound) and outside one (``outside``: must stay
+    0)."""
+
+    def __init__(self, log: RouteLog):
+        self.log, self.i, self.near, self.outside = log, 0, 0, 0
+
+    def __call__(self, cfg, p, x):
+        logits, probs = moe_lib.router(cfg, p, x)
+        k = cfg.moe.top_k
+        top_e = self.log.calls[self.i]
+        self.i += 1
+        lg = torch.sort(logits, -1, descending=True)
+        own = lg.indices[..., :k].sort(-1).values
+        differ = (own != top_e.sort(-1).values).any(-1)
+        rec_kth = logits.gather(-1, top_e).amin(-1)
+        tie = near_tie(lg.values[..., k - 1], rec_kth)
+        self.near += int((differ & tie).sum())
+        self.outside += int((differ & ~tie).sum())
+        top_w = probs.gather(-1, top_e)
+        return moe_lib.plan(cfg, logits, probs, top_e,
+                            top_w / top_w.sum(-1, keepdim=True))
+
+
+def family_rows(m, dev) -> dict:
+    """The attention kernels at every shape the run launched them at, by
+    name: launches from the run, device time (a CUDA graph), the plain
+    version's time, the bound and SDPA's device time; decode at the least
+    kv_len the run gave it (its first step)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for (kind, case), n in sorted(m["by_shape"].items()):
+        dtype = torch.bfloat16
+        if kind == "flash":
+            q, k, v = flash_inputs(case, dtype, 20, dev)
+            causal, window = case[6], case[7]
+            qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            fn = lambda: fops.flash_attention(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            plain = lambda: fops.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            lib = lambda: sdpa(qs, ks, vs, is_causal=causal,  # noqa: E731
+                               enable_gqa=True)
+            work = flash_work(case, dtype)
+        else:
+            q, k, v = decode_inputs(case, dtype, 21, dev)
+            kv_len = case[5]
+            live = min(kv_len, case[1])
+            qs = q.transpose(1, 2).contiguous()
+            kl, vl = (x[:, :live].transpose(1, 2).contiguous()
+                      for x in (k, v))
+            fn = lambda: dops.decode_attention(q, k, v, kv_len)  # noqa: E731
+            plain = lambda: dops.decode_attention_plain(  # noqa: E731
+                q, k, v, kv_len)
+            lib = lambda: sdpa(qs, kl, vl, enable_gqa=True)  # noqa: E731
+            work = decode_work(case, dtype)
+        bnd, by = bound_ms(*work, dtype)
+        rows[f"{kind} {case}"] = {
+            "kernel": kind, "case": list(case), "launches": n,
+            "ms": device_ms(fn), "eager_ms": cuda_ms(fn),
+            "plain_ms": cuda_ms(plain, reps=3), "bound_ms": bnd,
+            "bound_by": by, "library_ms": device_ms(lib)}
+    return rows
+
+
+def serve_family_phase(name, arch, dev, card, *, n_layers=None) -> tuple:
+    """A model family the earlier paths do not run, served as ``serve``
+    is: ``arch`` at full width (``n_layers`` of its layers when given)
+    from seeded random weights, ServeEngine over the same 8 requests
+    (the frontend's zero prefix, or the encoder's zero input, of 512 // 8
+    positions); launch counts read around that run and held to what the
+    model's code implies; the run teacher-forced through the kernels,
+    through the kernels' plain versions (the plain route) and through the
+    JAX model's own plain attention, on the card; the kernel route's
+    logits held to the larger of the bf16 bound's 2e-2 and the plain
+    routes' own distance; every attention call of the kernel run held to
+    its plain version elementwise; with experts, the reference routes
+    take the kernel route's experts (:class:`ForcedRoute`), and every
+    token whose own choice would differ is at a near-tie; the prefill's
+    dropped slots counted;
+    the attention kernels at each shape the run launched them at.  The
+    weights are freed at the end.  Returns (the phase's line, {row name:
+    kernel row})."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    kinds = cfg.layer_kinds()
+    n_attn = kinds.count("attn")
+    enc = cfg.enc_layers if cfg.kind == "encdec" else 0
+    # flash: every self-attention prefill, the encoder's layers and the
+    # cross-attention prefill; flash-decode: every self-attention decode
+    # step and every cross-attention decode step
+    n_cross = n_attn if cfg.kind == "encdec" else 0
+    want = {"flash": n_attn + enc + n_cross,
+            "decode": (n_attn + n_cross) * SERVE_NEW, "rglru": 0,
+            "mlstm": 0}
+    m = serve_main_path(arch, dev, want, cfg=cfg)
+    run, params, reqs = m["run"], m["params"], m["reqs"]
+    tokens, toks, plen, fed = m["tokens"], m["toks"], m["plen"], m["fed"]
+    # the kernel route records its routing; the reference routes take the
+    # same experts (their own weights for them) and count where their own
+    # choice would differ
+    log = RouteLog()
+    lk, prefill_ms, decode_ms = teacher_forced(cfg, run, params, toks, plen,
+                                               fed, route=log)
+    plain_route, model_route = ForcedRoute(log), ForcedRoute(log)
+    lp, prefill_ms_plain, decode_ms_plain = teacher_forced(
+        cfg, run, params, toks, plen, fed, attention=plain_attention,
+        route=plain_route)
+    lf, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              attention=MODEL_ATTENTION, route=model_route)
+    moe_line = {}
+    if cfg.moe is not None:
+        if plain_route.outside or model_route.outside:
+            raise AssertionError(
+                f"{plain_route.outside} (plain) and {model_route.outside} "
+                "(model) tokens would route otherwise outside a near-tie")
+        if len(log.calls) != cfg.n_layers * (1 + SERVE_NEW):
+            raise AssertionError(f"route calls {len(log.calls)}")
+        moe_line = {"routing_differs_near_tie_plain": plain_route.near,
+                    "routing_differs_near_tie_model": model_route.near,
+                    "routed_tokens": sum(t.shape[0] * t.shape[1]
+                                         for t in log.calls),
+                    "prefill_dropped_slots": log.prefill_drops,
+                    "prefill_slots": log.prefill_slots,
+                    "capacity_prefill": moe_lib.capacity(cfg.moe, plen),
+                    "route_calls": len(log.calls)}
+    _, _, _, floor, flips_floor = route_stats(lf, lp, cfg.vocab)
+    if flips_floor:
+        raise AssertionError(f"{flips_floor} tokens differ between the "
+                             "plain routes outside a near-tie")
+    agree, n_over, worst, rel = compare_routes(
+        lk, lp, tokens, cfg.vocab,
+        rel_bound=max(TOLS[torch.bfloat16][1], floor))
+    check = AttentionCheck()
+    teacher_forced(cfg, run, params, toks, plen, fed, attention=check)
+    if check.over or check.calls != want["flash"] + want["decode"]:
+        raise AssertionError(f"attention calls {check.calls}: "
+                             f"{check.over} elements over the bf16 bound")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    rows = family_rows(m, dev)
+    line = {"phase": name, "card": card, "arch": arch,
+            "n_params": m["n_params"], "layers": cfg.n_layers,
+            "layers_of_config": get_config(arch).n_layers,
+            "encoder_layers": enc, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+            "batch": SERVE_BATCH, "prompt_lens": [len(r.prompt) for r in reqs],
+            "padded_len": plen,
+            "prefix_or_encoder_len": max(plen // cfg.frontend_len_div, 1)
+            if cfg.frontend else 0,
+            "new_tokens": SERVE_NEW, "decode_budget": SERVE_BUDGET,
+            "launches": m["launches"],
+            "launches_by_shape": {k_: r["launches"] for k_, r in rows.items()},
+            "init_s": m["init_s"], "generate_s": m["generate_s"],
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "plain_prefill_ms": prefill_ms_plain,
+            "plain_decode_ms_per_token": decode_ms_plain,
+            "token_agreement_plain": agree / (SERVE_BATCH * SERVE_NEW),
+            "logits_max_rel_l2": rel, "logits_max_abs_err": worst,
+            "logits_elements_over_elementwise_bound": n_over,
+            "logits_within_2e-2": rel <= TOLS[torch.bfloat16][1],
+            "plain_routes_max_rel_l2": floor, **moe_line,
+            "attention_calls_checked": check.calls,
+            "attention_max_abs_err": check.max_err,
+            "attention_over_bound": check.over,
+            "kernel_ms": {k_: r["ms"] for k_, r in rows.items()},
+            "library_ms": {k_: r["library_ms"] for k_, r in rows.items()},
+            "peak_mem_gb": peak_gb,
+            "seconds": time.perf_counter() - t_phase}
+    del m, params, lk, lp, lf, log, plain_route, model_route
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, rows
 
 
 class Timed:
@@ -2827,6 +3151,80 @@ def durable_server_phase(pps, regs, want, dev, card) -> tuple:
     return lines, launches
 
 
+def shard_phase(pps, regs, want, dev, card) -> tuple:
+    """Lane sharding through the entry points (K3): the census through
+    ``run_fleet_prepared(shard=True)``, a ``FleetServer(shard=True)`` and
+    a durable ``FleetServer(shard=True)``, each on every visible card
+    (``device=None``).  With one card the mesh has one device and
+    ``shard=True`` is the no-op path: every pin is the unsharded run's
+    (the census's counts and sha256, the JAX server's stats and ledger,
+    the JAX durable server's generations, snapshots and journal records);
+    the journal's ``open`` record says ``shard: true``; and
+    ``engine="pallas"`` with ``shard=True`` raises ``ValueError``, as in
+    the JAX package.  Returns (the phase's line, {arm: launches})."""
+    mesh = sharding.fleet_mesh()
+    line = {"phase": "shard", "card": card, "devices": mesh.size,
+            "divisor": sharding.fleet_divisor(len(pps), mesh)}
+    launches = {}
+    out, timing = run_counted("shard census", lambda: run_fleet_prepared(
+        pps, fuel=FUEL, chunk=CHUNK, regs=regs, shard=True))
+    got = counts(out)
+    chunks = math.ceil(got["longest_lane_steps"] / CHUNK)
+    if (got != CENSUS_DEFAULT_EXPECTED or digest(out) != CENSUS_DEFAULT_SHA256
+            or mismatched(out, want)
+            or timing["launches"] != chunks * mesh.size):
+        raise AssertionError(f"sharded census: {got}, launches "
+                             f"{timing['launches']} for {chunks} chunks")
+    launches["census"] = timing["launches"]
+    line["census"] = {**timing, "sha256": digest(out)}
+
+    srv = census_server(PORT, pps, regs, shard=True)
+    results, timing = run_counted("shard fleet_server", srv.run)
+    states = fleet.stack_states([r.state for r in sorted(
+        results, key=lambda r: r.rid)])
+    got = served_summary(srv, results)
+    bad = differs(got, FS_SERVED_EXPECTED)
+    if bad or mismatched(want, states):
+        raise AssertionError(f"sharded server: {bad} differ from the JAX "
+                             "server's, or a state from the census's")
+    launches["fleet_server"] = timing["launches"]
+    line["fleet_server"] = {**timing, "ledger_sha256": got["ledger_sha256"]}
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as d:
+        (srv, res, _), timing = run_counted(
+            "shard durable", lambda: durable_census(PORT, pps, regs, d,
+                                                    shard=True))
+        got = durable_summary(srv, res)
+        recs, _ = Journal.replay(Path(d) / "journal.jsonl")
+        opened = recs[0]["server"]
+        del srv
+    if differs(got, DURABLE_EXPECTED) or opened["shard"] is not True:
+        raise AssertionError(f"sharded durable server: "
+                             f"{differs(got, DURABLE_EXPECTED)}, open record "
+                             f"shard={opened['shard']}")
+    launches["durable_server"] = timing["launches"]
+    line["durable_server"] = {**timing, **got,
+                              "open_record_shard": opened["shard"]}
+
+    raised = []
+    for name, call in (
+            ("run_fleet_prepared", lambda: run_fleet_prepared(
+                pps[:2], fuel=FUEL, chunk=CHUNK, regs=regs[:2], shard=True,
+                engine="pallas")),
+            ("FleetServer", lambda: FleetServer(pool=2, shard=True,
+                                                engine="pallas"))):
+        try:
+            call()
+        except ValueError as e:
+            raised.append(name)
+            line.setdefault("pallas_shard_error", str(e))
+    if len(raised) != 2:
+        raise AssertionError(f"engine='pallas', shard=True raised only for "
+                             f"{raised}")
+    line["pallas_shard_raises"] = raised
+    return line, launches
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
     lanes leave a ragged last block at 3): the kernel equals the plain
@@ -3234,8 +3632,20 @@ def main(argv=None) -> int:
     # 14. the xLSTM serving path: full-width xlstm-350m
     serve_xl, xl_rows = serve_xlstm_phase(dev, card)
     emit(serve_xl)
+    gc.collect()
+    torch.cuda.empty_cache()  # xlstm-350m's weights went with the phase
 
-    # 15-17. the census drivers: streamed harvest, admission and restore
+    # 15-17. the other model families, each freed before the next: the
+    #        MoE, the encoder-decoder, the patch-prefix decoder
+    family, family_lines = {}, {}
+    for name, arch, kw in (("serve_moe", MOE_ARCH, {}),
+                           ("serve_encdec", ENCDEC_ARCH, {}),
+                           ("serve_vlm", VLM_ARCH, {"n_layers": VLM_LAYERS})):
+        family_lines[name], family[name] = serve_family_phase(
+            name, arch, dev, card, **kw)
+        emit(family_lines[name])
+
+    # 18-20. the census drivers: streamed harvest, admission and restore
     #        into a pool, live-lane compaction
     t0 = time.perf_counter()
     line = streamed_phase(pps_def, regs, tr_t, dev, card)
@@ -3249,7 +3659,7 @@ def main(argv=None) -> int:
     line, launches_cmp = compact_phase(pps_def, regs, dev, card)
     emit({**line, "seconds": time.perf_counter() - t0})
 
-    # 18. the fleet server over the census and the noisy-neighbor mix
+    # 21. the fleet server over the census and the noisy-neighbor mix
     t0 = time.perf_counter()
     line, breakdown, launches_fs = fleet_server_phase(pps_def, regs, out,
                                                       dev, card)
@@ -3257,7 +3667,7 @@ def main(argv=None) -> int:
           "script_s": time.perf_counter() - t_script})
     emit(breakdown)
 
-    # 19. durable serving and chaos: the journal, snapshots, kill and
+    # 22. durable serving and chaos: the journal, snapshots, kill and
     #     recover, the chaos soak
     t0 = time.perf_counter()
     lines, launches_dur = durable_server_phase(pps_def, regs, out, dev, card)
@@ -3267,7 +3677,36 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0,
           "script_s": time.perf_counter() - t_script})
 
-    # 20. the kernel table, the card, and the device line (last)
+    # 23. lane sharding (K3): run_fleet_prepared, the fleet server and
+    #     the durable server with shard=True
+    t0 = time.perf_counter()
+    line, launches_shard = shard_phase(pps_def, regs, out, dev, card)
+    emit({**line, "seconds": time.perf_counter() - t0,
+          "script_s": time.perf_counter() - t_script})
+
+    # 24. the kernel table, the card, and the device line (last)
+    attn_src = {
+        "flash": ("flash_attention",
+                  "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:72"),
+        "decode": ("decode_attention",
+                   "src/repro_torch/kernels/decode_attention/csrc/"
+                   "decode_attention.cu",
+                   "src/repro/kernels/decode_attention/kernel.py:58")}
+    family_table = []
+    for phase, rows in family.items():
+        fl = family_lines[phase]
+        for r in rows.values():
+            kname, src, rep = attn_src[r["kernel"]]
+            family_table.append({
+                "name": f"{kname} ({fl['arch']}, case {r['case']})",
+                "route": "cuda", "source": src, "replaces": rep,
+                "max_abs_err": max(err_by[r["kernel"]],
+                                   fl["attention_max_abs_err"]),
+                **{k_: r[k_] for k_ in ("launches", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "eager_ms", "case")}})
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/megastep/csrc/megastep.cu",
               "replaces": "src/repro/kernels/megastep/kernel.py:103",
@@ -3287,7 +3726,8 @@ def main(argv=None) -> int:
                               "fleet_server": launches_fs["served"],
                               "durable_server": launches_dur["durable"]
                               + launches_dur["kill_recover"]
-                              + launches_dur["chaos_soak"]}},
+                              + launches_dur["chaos_soak"],
+                              "shard": sum(launches_shard.values())}},
         {"name": "megastep_chunk K2 (traced, policy gate)", **common,
          "launches": launches_k2, "max_abs_err": err_by["K2"],
          "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
@@ -3330,7 +3770,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:69",
          "max_abs_err": max(err_by["mlstm"], serve_xl["mlstm_max_abs_err"]),
-         **xl_rows["mlstm"]}]})
+         **xl_rows["mlstm"]}] + family_table})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

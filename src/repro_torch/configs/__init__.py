@@ -1,9 +1,8 @@
 """Config registry: ``--arch <id>`` resolution for the ten architectures.
 
 A copy of the JAX package's registry, data only, field for field (a test
-holds it there).  The port's model runs the ``attn``-only decoders (see
-:func:`repro_torch.models.lm.check_ported`); the other configs are here so
-that their names resolve and their checks raise.
+holds it there).  The port's model (:mod:`repro_torch.models.lm`) runs
+every one of them.
 """
 from __future__ import annotations
 

@@ -18,8 +18,13 @@ fleet (:func:`admit_lanes`, :func:`restore_lanes`, :func:`set_image_row`,
 :func:`update_policy_rows`), streamed trace harvest
 (:func:`run_fleet_stream`), live-lane compaction
 (:func:`run_fleet_compact`) and the durable server's carry digests and
-snapshot packing (:func:`carry_digest`, :func:`pack_carry`).  Lane
-sharding is a later slice; ``shard=`` raises ``NotImplementedError``.
+snapshot packing (:func:`carry_digest`, :func:`pack_carry`).  With
+``shard=True`` a run splits its lanes over the devices of
+:mod:`repro_torch.parallel.sharding`'s mesh, one slice a device, run in
+lockstep (one chunk on every slice, then one liveness test over all
+lanes) and written back into the carry: the same chunks, the same
+leaves.  On one device, or when the devices do not divide the lanes, it
+runs whole, as the JAX package does.
 
 Carry semantics: the big planes (``mem``, ``k_ino_data``, the trace ring
 and histogram) are updated in place (never copied per step); the drivers
@@ -49,6 +54,7 @@ from .machine import (HALT_BADMEM, HALT_EXIT, HALT_FUEL, HALT_KILL,
                       resolve_device)
 from ..emul import engine as emul_engine
 from ..emul import state as emul_state
+from ..parallel import sharding as SH
 
 I64 = torch.int64
 I32 = torch.int32
@@ -699,11 +705,42 @@ def _check_engine(engine: str, *, shard: bool = False) -> str:
     if engine not in ENGINES:
         raise ValueError(
             f"unknown fleet engine {engine!r}: expected one of {ENGINES}")
-    if shard:
-        raise NotImplementedError(
-            "shard=True is not ported yet (lane sharding, ROADMAP Queue 1 "
-            "item 6)")
+    if engine == "pallas" and shard:
+        # the JAX package's rule, kept so that configs mean the same here
+        raise ValueError(
+            "engine='pallas' does not compose with shard=True "
+            "(the megastep kernel is single-device); use engine='xla' "
+            "for sharded fleets")
     return engine
+
+
+def _mesh(shard: bool, device) -> Optional[SH.FleetMesh]:
+    """The mesh a ``shard=True`` run on ``device`` splits its lanes over
+    (:func:`sharding.fleet_devices`), else None."""
+    return SH.fleet_mesh(SH.fleet_devices(device)) if shard else None
+
+
+def _drive(imgs, ids, states, trace, *, chunk: int, span=None, mesh=None):
+    """Chunks of the megastep wrapper on the carry, in place, until no
+    lane is alive (``span=None``: then ``HALT_FUEL`` is patched) or after
+    ``span`` chunks.  With a ``mesh`` that partitions the lanes
+    (:func:`sharding.shard_fleet`) the slices run in lockstep, each on its
+    own device, and are written back into the carry."""
+    from ..kernels.megastep import ops as mops  # lazy: kernel layer
+    parts = (imgs, ids, states, trace)
+    if mesh is not None:
+        parts = SH.shard_fleet(imgs, ids, states, mesh, trace=trace)
+    if isinstance(parts[2], SH.Shards):
+        tr = parts[3] if trace is not None else (None,) * mesh.size
+        mops.lockstep(list(zip(*parts[:3], tr)), chunk=chunk, span=span)
+        SH.gather_lanes(parts[2], states)
+        if trace is not None:
+            SH.gather_lanes(parts[3], trace)
+    else:
+        mops.lockstep([(imgs, ids, states, trace)], chunk=chunk, span=span)
+    if span is None:
+        states.halted.copy_(_patch_fuel(states).halted)
+    return states if trace is None else (states, trace)
 
 
 def _fleet_inputs(imgs, states, img_ids, device):
@@ -740,16 +777,19 @@ def run_fleet(imgs, states, img_ids=None, *, chunk: int = DEFAULT_CHUNK,
     states equal an untraced run's.
 
     ``device=None`` means the card; inputs are moved there and the carry
-    is updated in place.  ``shard`` is a later slice and raises."""
+    is updated in place.  ``shard=True`` splits the lanes over the
+    devices (:func:`sharding.fleet_devices`: every visible card, or the
+    one ``device`` names) when their count divides the lane count, runs
+    the slices in lockstep and gathers them into the carry; the result is
+    the same."""
     _check_engine(engine, shard=shard)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    from ..kernels.megastep import ops as mops  # lazy: kernel layer
     imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
-    if trace is None:
-        return mops.run(imgs, img_ids, states, chunk=int(chunk))
-    return mops.run(imgs, img_ids, states, traces_to(trace, states.pc.device),
-                    chunk=int(chunk))
+    if trace is not None:
+        trace = traces_to(trace, states.pc.device)
+    return _drive(imgs, img_ids, states, trace, chunk=int(chunk),
+                  mesh=_mesh(shard, device))
 
 
 def run_fleet_span(imgs, states, img_ids, *, steps: int,
@@ -760,17 +800,24 @@ def run_fleet_span(imgs, states, img_ids, *, steps: int,
     a whole number of chunks), early exit when every lane halts.  Lanes
     out of fuel stay ``RUNNING`` (no ``HALT_FUEL`` patch).  With ``trace``
     returns ``(states, trace)``, as :func:`run_fleet`."""
-    _check_engine(engine)
+    return _run_span(imgs, states, img_ids, steps=steps, chunk=chunk,
+                     trace=trace, engine=engine, device=device)
+
+
+def _run_span(imgs, states, img_ids, *, steps: int, chunk: int, trace,
+              engine: str, device, mesh=None):
+    """:func:`run_fleet_span`, its lanes split over ``mesh`` (a sharded
+    server's generation)."""
+    _check_engine(engine, shard=mesh is not None)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
-    from ..kernels.megastep import ops as mops  # lazy: kernel layer
     imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
     if trace is not None:
         trace = traces_to(trace, states.pc.device)
-    return mops.span(imgs, img_ids, states, trace, chunk=int(chunk),
-                     span=-(-steps // chunk))
+    return _drive(imgs, img_ids, states, trace, chunk=int(chunk),
+                  span=-(-steps // chunk), mesh=mesh)
 
 
 def finish_halt_codes(halted: np.ndarray, icount: np.ndarray,
@@ -1220,12 +1267,13 @@ def run_fleet_compact(imgs, states, img_ids=None, *,
 
     ``stats`` (a dict, filled in place) receives the occupancy ledger:
     dispatched against useful lane-steps, the ladder and each compaction.
-    ``device=None`` means the card; ``shard`` is a later slice and raises.
+    ``device=None`` means the card.  ``shard=True`` splits every span's
+    lanes over the devices as :func:`run_fleet` does; the ladder then
+    keeps only the rungs the device count divides (per-shard ladders).
     """
     _check_engine(engine, shard=shard)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    from ..kernels.megastep import ops as mops  # lazy: kernel layer
     imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
     dev = states.pc.device
     traced = trace is not None
@@ -1237,7 +1285,9 @@ def run_fleet_compact(imgs, states, img_ids=None, *,
     if interval < 1:
         raise ValueError(f"interval must be >= 1, got {interval}")
     span = -(-interval // chunk)
-    ladder = compact_ladder(n_lanes, min_bucket)
+    mesh = _mesh(shard, device)
+    divisor = SH.fleet_divisor(n_lanes, mesh) if mesh else 1
+    ladder = compact_ladder(n_lanes, min_bucket, divisor=divisor)
 
     order = np.arange(n_lanes)          # physical slot -> original lane
     cur_s, cur_t = states, trace
@@ -1247,7 +1297,8 @@ def run_fleet_compact(imgs, states, img_ids=None, *,
     dispatched = useful = dispatches = 0
     compactions = []
     while True:
-        mops.span(imgs, ids_w, cur_s, cur_t, chunk=int(chunk), span=span)
+        _drive(imgs, ids_w, cur_s, cur_t, chunk=int(chunk), span=span,
+               mesh=mesh)
         dispatches += 1
         halted, icount, fuel = _host_rows(cur_s.halted, cur_s.icount,
                                           cur_s.fuel)

@@ -27,6 +27,7 @@ from .image import Image, build_process
 from .isa import Asm
 from .rewriter import RewriteReport, rewrite_all_to_signal, rewrite_image
 from .trampoline import build_hook_library, build_signal_handler
+from ..parallel import sharding as SH
 
 
 class Mechanism(enum.Enum):
@@ -288,7 +289,10 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
     process's ``HookConfig``; ``None`` defers to its ``compact_enabled``.
     Results and the return arity are unchanged.  ``compact_stats`` (a
     dict, filled in place) receives a compacted run's occupancy ledger.
-    ``shard`` is a later slice and raises.
+    ``shard=True`` splits the lanes over the devices
+    (:func:`repro_torch.parallel.sharding.fleet_devices`) when their count
+    divides the lane count (:func:`fleet.run_fleet`); the result is the
+    same.
     """
     cfg = next((pp.cfg for pp in pps if pp.cfg is not None), None)
     if compact is None:
@@ -317,12 +321,12 @@ def run_fleet_prepared(pps: Sequence[PreparedProcess], *,
     if compact:
         ccfg = cfg or HookConfig()
         return F.run_fleet_compact(
-            imgs, states, ids, chunk=chunk, trace=ts,
+            imgs, states, ids, chunk=chunk, shard=shard, trace=ts,
             min_bucket=ccfg.compact_min_bucket,
             hysteresis=ccfg.compact_hysteresis, stats=compact_stats,
-            engine=engine, device=states.pc.device)
-    return F.run_fleet(imgs, states, ids, chunk=chunk, engine=engine,
-                       trace=ts, device=states.pc.device)
+            engine=engine, device=device)
+    return F.run_fleet(imgs, states, ids, chunk=chunk, shard=shard,
+                       engine=engine, trace=ts, device=device)
 
 
 def update_fleet_policy(trace: F.TraceState, lanes: Sequence[int],
@@ -346,13 +350,16 @@ def precompile_compact(pps: Sequence[PreparedProcess], *,
     ``run_fleet_prepared(compact=True)`` over ``pps`` visits
     (:func:`fleet.precompile_ladder`: on the card, the kernel library is
     built or loaded once), so a timed run pays no build.  ``chunk`` and
-    ``min_bucket`` default to the first process's config.  Returns the
+    ``min_bucket`` default to the first process's config; with ``shard``
+    the ladder keeps the rungs the device count divides.  Returns the
     ladder."""
     cfg = next((pp.cfg for pp in pps if pp.cfg is not None), None) \
         or HookConfig()
     chunk = cfg.fleet_chunk if chunk is None else chunk
     min_bucket = cfg.compact_min_bucket if min_bucket is None else min_bucket
-    ladder = F.compact_ladder(len(pps), min_bucket)
+    divisor = SH.fleet_divisor(len(pps), F._mesh(True, device)) if shard \
+        else 1
+    ladder = F.compact_ladder(len(pps), min_bucket, divisor=divisor)
     cap = None
     if trace:
         caps = [pp.cfg.trace_cap for pp in pps if pp.cfg is not None]

@@ -12,7 +12,10 @@ on the CPU).
 build the kernel's arguments once (the carry is updated in place, so its
 pointers hold), then loop chunks while any lane is alive (one host sync
 per chunk); ``run`` patches ``HALT_FUEL`` afterwards, ``span`` stops
-after at most ``span`` chunks and does not.
+after at most ``span`` chunks and does not.  Both are :func:`lockstep`
+over one carry; a fleet cut into slices on several devices
+(``repro_torch.parallel.sharding``) runs through :func:`lockstep` over
+its slices.
 """
 from __future__ import annotations
 
@@ -142,16 +145,32 @@ def _launch(imgs, ids, s, tr, chunk):
 megastep_chunk.launches = 0
 
 
+def lockstep(parts, *, chunk: int, span: Optional[int] = None,
+             block: Optional[int] = None) -> None:
+    """Run carries in lockstep: one chunk on every part (``(imgs, ids, s,
+    tr)``, each on its own device, ``tr`` may be None), then one liveness
+    test over all of their lanes, until no lane is alive or after ``span``
+    chunks.  The parts take the chunks one carry of all their lanes would
+    take, so each lane's result is the same.  Every part is updated in
+    place."""
+    for p in parts:
+        _validate(*p, chunk, block)
+        _check_ids(p[0], p[1])
+    launches = [_launch(*p, int(chunk)) for p in parts]
+    k = 0
+    while ((span is None or k < span)
+           and any(bool(F._alive(p[2]).any()) for p in parts)):
+        for p, launch in zip(parts, launches):
+            _chunk(*p, int(chunk), block, launch)
+        k += 1
+
+
 def run(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
         tr: Optional[F.TraceState] = None, *, chunk: int,
         block: Optional[int] = None):
     """Run every lane to halt (or out of fuel, patched to HALT_FUEL).
     Returns ``s``, or ``(s, tr)`` with a trace carry."""
-    _validate(imgs, ids, s, tr, chunk, block)
-    _check_ids(imgs, ids)
-    launch = _launch(imgs, ids, s, tr, int(chunk))
-    while bool(F._alive(s).any()):
-        _chunk(imgs, ids, s, tr, int(chunk), block, launch)
+    lockstep([(imgs, ids, s, tr)], chunk=chunk, block=block)
     s.halted.copy_(F._patch_fuel(s).halted)
     return s if tr is None else (s, tr)
 
@@ -161,11 +180,5 @@ def span(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,
          block: Optional[int] = None):
     """At most ``span`` chunks, early exit when every lane halts; no
     HALT_FUEL patch.  Returns ``s``, or ``(s, tr)`` with a trace carry."""
-    _validate(imgs, ids, s, tr, chunk, block)
-    _check_ids(imgs, ids)
-    launch = _launch(imgs, ids, s, tr, int(chunk))
-    k = 0
-    while k < span and bool(F._alive(s).any()):
-        _chunk(imgs, ids, s, tr, int(chunk), block, launch)
-        k += 1
+    lockstep([(imgs, ids, s, tr)], chunk=chunk, span=span, block=block)
     return s if tr is None else (s, tr)

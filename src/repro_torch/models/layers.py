@@ -205,18 +205,21 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
     kv positions (decode with a preallocated cache), a host int.
     ``chunk``: the plain form's query chunk (no effect on the kernels).
 
-    CUDA tensors go to a kernel: full-sequence attention (no ``kv_len``,
-    ``q_offset`` 0) to flash attention, one query position against a
-    cache (``kv_len``, not causal, no window) to flash-decode; any other
-    form raises.  CPU tensors take the plain form of this function, the
-    JAX model's."""
+    CUDA tensors go to a kernel: one query position, not causal, no
+    window, against a cache of ``kv_len`` live positions (self-attention
+    decode) or against the whole of it (cross-attention decode: ``kv_len``
+    is then Skv) to flash-decode; every other full-sequence form (no
+    ``kv_len``, ``q_offset`` 0: prefill, the encoder, cross-attention
+    prefill) to flash attention; any other form raises.  CPU tensors take
+    the plain form of this function, the JAX model's."""
     if q.device.type != "cuda":
         return attention_plain(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, kv_len=kv_len, chunk=chunk)
+    if q.shape[1] == 1 and not causal and not window:
+        return decode_attention(q, k, v,
+                                k.shape[1] if kv_len is None else kv_len)
     if kv_len is None and q_offset == 0:
         return flash_attention(q, k, v, causal=causal, window=window)
-    if kv_len is not None and q.shape[1] == 1 and not causal and not window:
-        return decode_attention(q, k, v, kv_len)
     raise NotImplementedError(
         f"no attention kernel for causal={causal}, window={window}, "
         f"q_offset={q_offset}, kv_len={kv_len}, Sq={q.shape[1]}")
@@ -226,7 +229,10 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
 # Attention block (params + apply)
 # ---------------------------------------------------------------------------
 
-def init_attn(cfg: ModelConfig, gen: torch.Generator, *, lead=()) -> dict:
+def init_attn(cfg: ModelConfig, gen: torch.Generator, *, lead=(),
+              cross: bool = False) -> dict:
+    """Self-attention's projections, or cross-attention's (``cross``: no
+    qkv bias; q from the decoder, k and v from the encoder's output)."""
     d, hd = cfg.d_model, cfg.hd
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     lead = tuple(lead)
@@ -241,7 +247,7 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator, *, lead=()) -> dict:
         return torch.full(lead + (n,), fill, dtype=PARAM_DTYPE,
                           device=gen.device)
 
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = const(nq * hd, 0.0)
         p["bk"] = const(nkv * hd, 0.0)
         p["bv"] = const(nkv * hd, 0.0)
@@ -283,8 +289,13 @@ def attn_out(cfg: ModelConfig, p: dict, o):
 # MLP block
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, lead=()) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, *, lead=(),
+             d_ff: Optional[int] = None) -> dict:
+    """A gated (swiglu, geglu) or plain MLP of width ``d_ff`` (default
+    ``cfg.d_ff``; the MoE's shared experts are one MLP of their summed
+    width)."""
+    d = cfg.d_model
+    ff = d_ff if d_ff is not None else cfg.d_ff
     lead = tuple(lead)
     p = {"w1": dense_init(gen, lead + (d, ff)),
          "w2": dense_init(gen, lead + (ff, d))}

@@ -483,9 +483,7 @@ def _server_meta(srv) -> dict:
         "pool": srv.pool, "cfg": srv.cfg.to_dict(),
         "gen_steps": srv.gen_steps, "chunk": srv.chunk,
         "table_capacity": srv.table.capacity, "default_fuel": srv.default_fuel,
-        # the port's server raises on shard=True (lane sharding is a
-        # later slice), so a port-written record always says False
-        "shard": False, "trace_enabled": srv.trace_enabled,
+        "shard": srv._shard, "trace_enabled": srv.trace_enabled,
         "stream_enabled": srv.stream_enabled,
         "compact_enabled": srv.compact_enabled,
         "obs_enabled": srv._obs is not None,

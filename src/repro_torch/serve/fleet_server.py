@@ -69,8 +69,11 @@ lane tree the server keeps — a preemption checkpoint, a published
 ``FleetResult.state`` — is a copy that no later generation touches.
 
 ``device=None`` means the card; the server passes its device to every
-fleet call.  Lane sharding (``shard=True``) is not ported yet and raises
-``NotImplementedError``.
+fleet call.  ``shard=True`` splits every generation's lanes over the
+devices (:mod:`repro_torch.parallel.sharding`: every visible card, or the
+one ``device`` names) when their count divides the pool, and keeps the
+compaction ladder to the rungs they divide; on one device it changes
+nothing.
 """
 from __future__ import annotations
 
@@ -92,6 +95,7 @@ from ..core.runtime import (FleetImageTable, Mechanism, PreparedProcess,
 from ..obs import ObsHub
 from ..obs import now as obs_now
 from ..obs import phase as obs_phase
+from ..parallel import sharding as SH
 from ..sched.scheduler import PolicyScheduler
 from ..trace import policy as trace_policy
 from ..trace import recorder as trace_recorder
@@ -176,7 +180,9 @@ class FleetServer:
     generation (scheduling granularity — results are invariant to it);
     ``table_capacity`` bounds how many distinct binaries can be resident at
     once (pool width + expected diversity).  ``device=None`` means the
-    card.  ``shard=True`` is not ported yet and raises.
+    card.  ``shard=True`` lane-partitions the pool across the devices
+    (:mod:`repro_torch.parallel.sharding`) when their count divides
+    ``pool``.
     """
 
     def __init__(self, pool: int = 8, *, cfg: Optional[HookConfig] = None,
@@ -201,7 +207,7 @@ class FleetServer:
             raise ValueError(
                 f"gen_steps/chunk must be >= 1, got {self.gen_steps}/{self.chunk}")
         # both engine names run the megastep wrapper (bit-identical in the
-        # JAX package); shard=True raises here
+        # JAX package); "pallas" with shard=True raises, as in JAX
         self.engine = F._check_engine(
             self.cfg.fleet_engine if engine is None else engine, shard=shard)
         self.device = M.resolve_device(device)
@@ -295,7 +301,11 @@ class FleetServer:
         self._order = np.arange(pool)
         self._W = pool
         self._prev_icount = np.zeros(pool, np.int64)
-        self._ladder = (F.compact_ladder(pool, self.cfg.compact_min_bucket)
+        self._shard = bool(shard)
+        self._mesh = F._mesh(self._shard, device)
+        divisor = SH.fleet_divisor(pool, self._mesh) if self._shard else 1
+        self._ladder = (F.compact_ladder(pool, self.cfg.compact_min_bucket,
+                                         divisor=divisor)
                         if self.compact_enabled else [pool])
         self.min_bucket_seen = pool
 
@@ -337,7 +347,7 @@ class FleetServer:
             self.table.images, self._ladder, chunk=self.chunk,
             interval=self.gen_steps,
             trace_cap=self.cfg.trace_cap if self.trace_enabled else None,
-            engine=self.engine, device=self.device)
+            shard=self._shard, engine=self.engine, device=self.device)
         return list(self._ladder)
 
     # -- request intake -------------------------------------------------------
@@ -1058,19 +1068,22 @@ class FleetServer:
         observation is off)."""
         return obs_phase(self._obs, name)
 
-    def _dispatch(self, ids: np.ndarray) -> None:
+    def _span(self, ids: np.ndarray, steps: int) -> None:
+        """One span of the carry, in place (its lanes split over the mesh
+        when the server is sharded)."""
+        out = F._run_span(self.table.images, self._states, ids, steps=steps,
+                          chunk=self.chunk, trace=self._trace,
+                          engine=self.engine, device=self.device,
+                          mesh=self._mesh)
         if self._trace is None:
+            self._states = out
+        else:
+            self._states, self._trace = out
+
+    def _dispatch(self, ids: np.ndarray) -> None:
+        if self._stream is None:
             with self._phase("dispatch"):
-                self._states = F.run_fleet_span(
-                    self.table.images, self._states, ids,
-                    steps=self.gen_steps, chunk=self.chunk,
-                    engine=self.engine, device=self.device)
-        elif self._stream is None:
-            with self._phase("dispatch"):
-                self._states, self._trace = F.run_fleet_span(
-                    self.table.images, self._states, ids,
-                    steps=self.gen_steps, chunk=self.chunk, trace=self._trace,
-                    engine=self.engine, device=self.device)
+                self._span(ids, self.gen_steps)
         else:
             self._dispatch_streamed(ids)
 
@@ -1091,10 +1104,7 @@ class FleetServer:
         while left > 0:
             steps = min(interval, left)
             with self._phase("dispatch"):
-                self._states, self._trace = F.run_fleet_span(
-                    self.table.images, self._states, ids,
-                    steps=steps, chunk=self.chunk, trace=self._trace,
-                    engine=self.engine, device=self.device)
+                self._span(ids, steps)
             if pending is not None:
                 with self._phase("stream_flush"):
                     self._stream.push_block(keys, F._landed(*pending[0]),

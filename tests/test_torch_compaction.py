@@ -198,8 +198,13 @@ def test_run_fleet_prepared_compact_config_path(jax_compacted):
     _equal(plain, got[0], "config path vs fixed width")
     assert precompile_compact(tpps, device="cpu") == \
         jfleet.compact_ladder(len(tpps), 2)
-    with pytest.raises(NotImplementedError):
-        run_fleet_prepared(tpps, shard=True, device="cpu")
+    sharded_stats = {}
+    sharded = run_fleet_prepared(tpps, fuel=FUEL, chunk=4, regs=regs,
+                                 trace=True, shard=True,
+                                 compact_stats=sharded_stats, device="cpu")
+    _equal(want[0], sharded[0], "config path, shard=True, vs JAX")
+    _equal(want[1], sharded[1], "config path carry, shard=True, vs JAX")
+    assert sharded_stats == want_stats  # one device: the same ladder
 
 
 # The JAX package's compacted census (HookConfig's ladder, chunk 128), from

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 megastep, flash attention, flash-decode, the RG-LRU scan and the mLSTM,
-the LM serving paths (attention-only, hybrid and xLSTM), and the fleet
-server's durable and chaos paths.
+the LM serving paths (attention-only, hybrid, xLSTM, MoE, patch prefix
+and encoder-decoder), the fleet server's durable and chaos paths, and
+lane sharding on the cards there are.
 
 These tests need a CUDA card and skip without one (a skip is not a pass).
 They import no JAX, so they run on the machine with the card:
@@ -954,3 +955,92 @@ def test_carry_digest_on_card_equals_cpu_copy(census_every_tenth, traced):
         fleet.lane_digests(cs, ct)[3]
     fleet.flip_bit(cs, 3, 4321, 63)
     assert fleet.carry_digest(s, tr) == fleet.carry_digest(cs, ct)
+
+
+# -- the MoE, the frontend and the encoder-decoder; lane sharding ------------
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "seamless-m4t-medium",
+                                  "llava-next-34b"])
+def test_serve_engine_runs_every_family_on_the_kernels(card, arch):
+    """SMOKE on the card: flash attention for every self-attention
+    prefill, encoder layer and cross-attention prefill; flash-decode for
+    every self- and cross-attention decode step; the engine's tokens the
+    argmax of its teacher-forced kernel-route logits; every attention
+    call within the bf16 bound of the kernels' plain versions."""
+    cfg = get_smoke(arch)
+    run = RunConfig(attn_chunk=8, remat_policy="none", decode_budget=8)
+    params = lm.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(cfg, run, params, max_batch=2)
+    prompts = [np.arange(8, dtype=np.int32), np.arange(5, dtype=np.int32) + 3]
+    fops.flash_attention.launches = dops.decode_attention.launches = 0
+    outs = eng.generate([Request(p, max_new_tokens=4) for p in prompts])
+    cross = cfg.n_layers if cfg.kind == "encdec" else 0
+    launches = fops.flash_attention.launches + dops.decode_attention.launches
+    assert fops.flash_attention.launches == cfg.n_layers + cross + (
+        cfg.enc_layers if cross else 0)
+    assert dops.decode_attention.launches == (cfg.n_layers + cross) * 4
+    tokens = np.stack([o.tokens for o in outs])
+    toks, plen = eng._pad_batch([Request(p) for p in prompts])
+    fed = torch.from_numpy(tokens.astype(np.int64)).to(card)
+    check = SMOKE.AttentionCheck()
+    logits, _, _ = SMOKE.teacher_forced(cfg, run, params, toks, plen, fed,
+                                        attention=check)
+    assert check.over == 0 and check.calls == launches
+    picks = np.stack([x[:, :cfg.vocab].argmax(-1).cpu().numpy()
+                      for x in logits[:-1]], 1)
+    np.testing.assert_array_equal(picks, tokens)
+
+
+def test_cross_attention_decode_takes_flash_decode_over_the_whole_cache(
+        card):
+    """One non-causal query against a cache with no kv_len: flash-decode
+    with kv_len = Skv, equal to flash attention's plain version."""
+    from repro_torch.models import layers
+    q, k, v = SMOKE.decode_inputs((3, 64, 16, 16, 64, 0), torch.bfloat16, 5,
+                                  card)
+    dops.decode_attention.launches = fops.flash_attention.launches = 0
+    got = layers.attention(q, k, v, causal=False)
+    assert dops.decode_attention.launches == 1
+    assert fops.flash_attention.launches == 0
+    want = fops.flash_attention_plain(q, k, v, causal=False)
+    assert SMOKE.over_bound(got, want, torch.bfloat16)[1] == 0
+
+
+def test_moe_on_the_card_is_deterministic_and_near_the_cpu(card):
+    """qwen2-moe-a2.7b SMOKE's MoE layer: two calls on the card equal bit
+    for bit (the combine is a gather and a fixed-order sum, no atomics);
+    the output within the bf16 bound of the CPU's where no token's
+    routing is at a near-tie (uncapped, so no token's drop depends on
+    another's routing)."""
+    from repro_torch.models import moe
+    cfg = get_smoke("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    p = moe.init_moe(cfg, torch.Generator(device=card).manual_seed(3))
+    x = SMOKE.randn((4, 64, cfg.d_model), torch.bfloat16,
+                    np.random.default_rng(6), card)
+    y1, a1 = moe.apply_moe(cfg, p, x)
+    y2, a2 = moe.apply_moe(cfg, p, x)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    yc, _ = moe.apply_moe(cfg, lm.tree_map(lambda t: t.cpu(), p), x.cpu())
+    r = moe.route(cfg, lm.tree_map(lambda t: t.cpu(), p), x.cpu())
+    k = cfg.moe.top_k
+    lg = torch.sort(r.logits, -1, descending=True).values
+    clear = (lg[..., k - 1] - lg[..., k] > 2 * (2e-2 + 2e-2 * lg[
+        ..., k - 1].abs()))
+    assert clear.any()
+    got, want = y1.cpu()[clear], yc[clear]
+    assert SMOKE.over_bound(got, want, torch.bfloat16)[1] == 0
+
+
+def test_shard_on_one_card_is_the_unsharded_run(census_every_tenth, card):
+    """run_fleet_prepared(shard=True) over every visible card: with one
+    card the no-op path, every leaf the unsharded run's."""
+    from repro_torch.parallel import sharding
+    pps, regs = census_every_tenth[:2]
+    want = run_fleet_prepared(pps, fuel=SMOKE.FUEL, chunk=128, regs=regs,
+                              device=card)
+    got = run_fleet_prepared(pps, fuel=SMOKE.FUEL, chunk=128, regs=regs,
+                             shard=True)
+    _assert_equal(want, got, "shard=True")
+    assert sharding.fleet_mesh().size == torch.cuda.device_count()

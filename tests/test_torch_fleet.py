@@ -260,16 +260,19 @@ def test_census_counts_are_pinned():
 
 
 def test_unported_paths_raise():
-    """Only lane sharding is still a later slice: ``shard=`` raises, while
-    ``compact=True`` and ``pack_fleet(table=)`` run and agree with the
-    fixed-width run."""
+    """Every fleet path is ported now: ``shard=True`` (on one device the
+    JAX package's no-op), ``compact=True`` and ``pack_fleet(table=)`` run
+    and agree with the fixed-width run; what still raises is what raises
+    in JAX (an unknown engine, ``engine="pallas"`` with ``shard=True``)."""
     from repro_torch.core import FleetImageTable
     cfg = HookConfig(emul_enabled=False)
     pps = [prepare(programs.getpid_loop(3), Mechanism.ASC, virtualize=True,
                    cfg=cfg)] * 2
-    with pytest.raises(NotImplementedError):
-        run_fleet_prepared(pps, device="cpu", shard=True)
+    with pytest.raises(ValueError, match="does not compose with shard"):
+        run_fleet_prepared(pps, device="cpu", shard=True, engine="pallas")
     fixed = run_fleet_prepared(pps, device="cpu")
+    sharded = run_fleet_prepared(pps, device="cpu", shard=True)
+    assert all(torch.equal(x, y) for x, y in zip(fixed, sharded))
     compacted = run_fleet_prepared(pps, device="cpu", compact=True)
     assert all(torch.equal(x, y) for x, y in zip(fixed, compacted))
     imgs, ids, _ = pack_fleet(pps, table=FleetImageTable(2, device="cpu"),

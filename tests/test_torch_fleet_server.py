@@ -547,10 +547,19 @@ def test_preemption_checkpoint_survives_later_generations():
 
 
 def test_unported_options_raise():
-    """Only lane sharding is still to port (durability and chaos are in
-    tests/test_torch_durability.py and tests/test_torch_chaos.py)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        FleetServer(pool=2, shard=True, device="cpu")
+    """Every option is ported (lane sharding here and in
+    tests/test_torch_sharding.py; durability and chaos in
+    tests/test_torch_durability.py and tests/test_torch_chaos.py): a
+    sharded server on one device keeps the unsharded ladder, and
+    ``engine="pallas"`` with ``shard=True`` raises as the JAX server
+    does."""
+    srv = FleetServer(pool=4, shard=True, compact=True, device="cpu",
+                      cfg=HookConfig(compact_min_bucket=1))
+    assert srv._mesh.size == 1 and srv._ladder == [4, 2, 1]
+    with pytest.raises(ValueError, match="does not compose with shard"):
+        FleetServer(pool=2, shard=True, engine="pallas", device="cpu")
+    with pytest.raises(ValueError, match="does not compose with shard"):
+        JFleetServer(pool=2, shard=True, engine="pallas")
     st_ = FleetServer(pool=1, device="cpu").stats()
     assert st_["durability_enabled"] is False and st_["chaos"] is None
 

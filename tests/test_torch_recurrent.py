@@ -416,7 +416,7 @@ def test_prefill_head_over_all_rows_equals_jax():
     batch = {"tokens": torch.from_numpy(toks).long()}
     got, _ = lm.prefill(tcfg, trun, tp, batch)
     _bits_equal(got, want, "prefill logits")
-    x, _ = lm._backbone(tcfg, trun, tp, batch, "prefill")
+    x, _, _ = lm._backbone(tcfg, trun, tp, batch, "prefill")
     last_only = layers.dot(x[:, -1], lm._head_weight(tcfg, tp))
     assert (_np(last_only) != _np(want)).any()
 
