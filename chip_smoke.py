@@ -65,6 +65,13 @@ every kernel launch counted from 0 just before and read just after:
 * Lane sharding: the census through ``run_fleet_prepared(shard=True)``
   and through sharded and durable sharded fleet servers on every visible
   card; with one card, the no-op path.
+* Training: ``repro_torch.train.loop.run_training`` over qwen3-1.7b and
+  recurrentgemma-2b SMOKE (a crash, then the auto-resume), and three
+  steps of ``repro_torch.train.step.make_train_step`` over qwen3-1.7b at
+  full width and depth (28 layers, 1.72 B parameters, f32 parameters and
+  AdamW moments on the card, batch 4 x 512) — the models' plain forms
+  under autograd: no kernel has a backward, so the four model kernels
+  must launch 0 times there, and each refuses inputs that require grad.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -212,7 +219,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     card: the census pins, the JAX server's and durable server's pins, the
     journal's ``open`` record ``shard: true``; ``engine="pallas"`` with
     ``shard=True`` raises ``ValueError``;
-24. the kernel table line (the megastep's launches on every path, the
+24. ``train_pins``: for qwen3-1.7b and recurrentgemma-2b SMOKE,
+    numpy-seeded parameters saved as a step-0 checkpoint, 10 steps of
+    ``run_training`` straight and again with an ``InjectedFailure`` at
+    step 5 and the auto-resume: every loss within 2e-2 relative of the
+    JAX package's (``TRAIN_PINS``), the resumed run equal to the straight
+    one bit for bit (losses and every leaf of the final state), no model
+    kernel launched;
+25. ``train_full``: qwen3-1.7b at full width and depth, every tile
+    checkpointed, loss chunks of 128: every leaf's gradient finite and
+    not all zero, step 0's CE within 2e-2 relative of the kernel route's
+    logits on the same batch (28 flash launches there), three steps with
+    no model kernel launched, each kernel wrapper raising on inputs that
+    require grad; step ms, tokens/s and peak GiB;
+26. the kernel table line (the megastep's launches on every path, the
     attention kernels at every family's shapes), the card line, then the
     device line (last).
 
@@ -245,12 +265,15 @@ from repro_torch.core import (  # noqa: E402
     FleetImageTable, HookConfig, Mechanism, fleet, initial_state, interop,
     pack_fleet, precompile_compact, prepare, programs, run_fleet_prepared,
     run_fleet_span, run_prepared, run_with_c3)
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.core import costmodel as cm  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.hookcfg import PolicyRule  # noqa: E402
 from repro_torch.core.machine import HALT_EXIT, MachineState  # noqa: E402
 from repro_torch.core.runtime import fleet_trace  # noqa: E402
-from repro_torch.configs import RunConfig, get_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    RunConfig, ShapeConfig, get_config, get_smoke)
+from repro_torch.data.pipeline import TokenStream  # noqa: E402
 from repro_torch.emul import state as emul_state  # noqa: E402
 from repro_torch.kernels import nvcc  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dkernel  # noqa: E402
@@ -282,6 +305,9 @@ from repro_torch.serve.fleet_server import FleetServer  # noqa: E402
 from repro_torch.trace import policy as tpolicy  # noqa: E402
 from repro_torch.trace import recorder  # noqa: E402
 from repro_torch.trace.stream import TraceStream  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    grads_and_metrics, init_train_state, make_train_step)
 
 # -- the census deployment (a copy of benchmarks/collective_hook_overhead.py)
 FUEL = 10_000_000
@@ -796,10 +822,12 @@ ROUTE = moe_lib.route
 MODEL_ATTENTION = layers.attention_plain
 
 
-def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0):
+def plain_attention(q, k, v, *, causal, window=0, kv_len=None, chunk=0,
+                    chunk_remat=False):
     """The kernels' plain versions in the model's attention's place: the
     reference the kernel route is held to on the card.  Prefill (no
-    ``kv_len``) takes flash attention's, decode flash-decode's."""
+    ``kv_len``) takes flash attention's, decode flash-decode's (``chunk``
+    and ``chunk_remat``, the model's plain form's, do not apply)."""
     if kv_len is None:
         return fops.flash_attention_plain(q, k, v, causal=causal,
                                           window=window)
@@ -3225,6 +3253,304 @@ def shard_phase(pps, regs, want, dev, card) -> tuple:
     return line, launches
 
 
+# -- training (the JAX package's train/ and optim/, on the card) --------------
+# train_pins: SMOKE configs, numpy-seeded parameters saved as a step-0
+# checkpoint, run_training for TRAIN_STEPS steps straight and with a crash
+# at TRAIN_FAIL_AT then a resume; the losses pinned from the JAX package
+# (scripts/torch_port_pins.py --only train)
+TRAIN_ARCHS = ("qwen3-1.7b", "recurrentgemma-2b")
+TRAIN_SHAPE = (32, 4)             # seq_len, global batch
+TRAIN_STEPS = 10
+TRAIN_FAIL_AT = 5
+TRAIN_PARAM_SEED = 0
+TRAIN_DATA_SEED = 3
+TRAIN_RUN = dict(attn_chunk=8, mlstm_chunk=8, remat_policy="nothing",
+                 loss_chunk=8, warmup_steps=2, total_steps=30,
+                 learning_rate=3e-3, ckpt_every=5, z_loss=1e-4)
+TRAIN_TOL = 2e-2                  # relative, a step's loss (bf16 bound)
+TRAIN_PINS = {  # the JAX package's straight-run losses
+    "qwen3-1.7b": [6.091129302978516, 6.057677745819092, 5.635338306427002,
+                   5.766507148742676, 5.872946262359619, 5.232533931732178,
+                   5.586441993713379, 5.89182186126709, 5.963068962097168,
+                   5.163453578948975],
+    "recurrentgemma-2b": [6.2999348640441895, 6.371365547180176,
+                          5.434496879577637, 5.884324550628662,
+                          5.8923563957214355, 4.907963275909424,
+                          4.815901756286621, 5.42406702041626,
+                          5.73120641708374, 4.167857646942139],
+}
+# train_full: qwen3-1.7b at full width and depth, three steps through
+# make_train_step, every tile checkpointed, the head and xent in chunks
+FULL_TRAIN_ARCH = "qwen3-1.7b"
+FULL_TRAIN_SHAPE = (512, 4)
+FULL_TRAIN_STEPS = 3
+FULL_TRAIN_RUN = dict(remat_policy="nothing", loss_chunk=128)
+MODEL_KERNELS = {"flash_attention": fops.flash_attention,
+                 "decode_attention": dops.decode_attention,
+                 "rglru_scan": rops.rglru_scan,
+                 "mlstm_chunk": xops.mlstm_chunk}
+# dense_init's scales where a leaf's is not 1/sqrt(fan_in)
+_INIT_SCALES = {"conv": 0.3, "wi": 0.02, "wf": 0.02, "ri": 0.02, "rf": 0.02,
+                "router": 0.02}
+
+PORT_TRAIN = types.SimpleNamespace(
+    run_training=train_loop.run_training,
+    InjectedFailure=train_loop.InjectedFailure, RunConfig=RunConfig,
+    ShapeConfig=ShapeConfig, get_smoke=get_smoke)
+
+
+def numpy_params(arch: str, seed: int) -> dict:
+    """``arch``'s SMOKE parameters as numpy arrays drawn from ``seed``:
+    the port's init tree (its constant leaves — norms, biases, the
+    RG-LRU's Lambda — as they are), every other leaf normal with
+    dense_init's scale.  The same on every machine, so the JAX package
+    (scripts/torch_port_pins.py) trains from the same weights."""
+    cfg = get_smoke(arch)
+    like = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        a = tree.numpy()
+        if name == "lam" or a.min() == a.max():
+            return a.copy()
+        scale = (1 / math.sqrt(cfg.d_model) if name == "tok" else
+                 _INIT_SCALES.get(name, 1 / math.sqrt(
+                     a.shape[-2] if a.ndim >= 2 else a.shape[-1])))
+        return (rng.standard_normal(a.shape) * scale).astype(np.float32)
+
+    return walk(like)
+
+
+def step0_checkpoint(directory, params: dict) -> None:
+    """A step-0 training state of ``params`` (zero moments, step 0, the
+    data stream at its start), in the checkpoint files both packages
+    read."""
+    def zeros(t):
+        return ({k: zeros(v) for k, v in t.items()} if isinstance(t, dict)
+                else np.zeros_like(t))
+
+    state = {"params": params, "opt": {"m": zeros(params),
+                                       "v": zeros(params),
+                                       "step": np.int32(0)}}
+    CheckpointManager(str(directory)).save(0, state, extra={
+        "data_state": {"step": 0, "seed": TRAIN_DATA_SEED, "host_id": 0,
+                       "n_hosts": 1}})
+
+
+def train_pin_runs(pkg, arch: str, directory, **kw) -> dict:
+    """``pkg``'s run_training from the same step-0 checkpoint twice:
+    ``straight`` (TRAIN_STEPS steps) and ``crashed`` (InjectedFailure at
+    TRAIN_FAIL_AT, then the auto-resume to TRAIN_STEPS)."""
+    cfg = pkg.get_smoke(arch)
+    shape = pkg.ShapeConfig("train_pins", *TRAIN_SHAPE, "train")
+    params = numpy_params(arch, TRAIN_PARAM_SEED)
+    runs = {}
+    for name in ("straight", "crashed"):
+        d = Path(directory) / arch / name
+        step0_checkpoint(d, params)
+        run = pkg.RunConfig(**TRAIN_RUN, ckpt_dir=str(d))
+        if name == "crashed":
+            try:
+                pkg.run_training(cfg, run, shape, steps=TRAIN_STEPS,
+                                 seed=TRAIN_DATA_SEED,
+                                 fail_at_step=TRAIN_FAIL_AT, **kw)
+                raise AssertionError("no injected failure")
+            except pkg.InjectedFailure:
+                pass
+        runs[name] = pkg.run_training(cfg, run, shape, steps=TRAIN_STEPS,
+                                      seed=TRAIN_DATA_SEED, **kw)
+    return runs
+
+
+def kernel_launches() -> dict:
+    return {name: fn.launches for name, fn in MODEL_KERNELS.items()}
+
+
+def reset_kernel_launches() -> None:
+    for fn in MODEL_KERNELS.values():
+        fn.launches = 0
+
+
+def train_pins_phase(dev, card) -> dict:
+    """run_training on the card for each TRAIN_ARCHS: its losses against
+    the JAX package's pins, the resumed run equal to the straight run bit
+    for bit (losses and every leaf of the final state), no model kernel
+    launched."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        for arch in TRAIN_ARCHS:
+            reset_kernel_launches()
+            t1 = time.perf_counter()
+            runs = train_pin_runs(PORT_TRAIN, arch, tmp, device=dev)
+            launches = kernel_launches()
+            straight, crashed = runs["straight"], runs["crashed"]
+            pins = TRAIN_PINS[arch]
+            rel = [abs(a - b) / abs(b) for a, b in zip(straight.losses, pins)]
+            if len(straight.losses) != TRAIN_STEPS or max(rel) > TRAIN_TOL:
+                raise AssertionError(f"{arch} losses {straight.losses}: "
+                                     f"relative {max(rel)} from the JAX "
+                                     f"pins {pins}")
+            if crashed.resumed_from != TRAIN_FAIL_AT:
+                raise AssertionError(f"{arch} resumed from "
+                                     f"{crashed.resumed_from}")
+            bad = [i for i, (x, y) in enumerate(zip(
+                lm.tree_leaves(straight.state), lm.tree_leaves(
+                    crashed.state))) if not torch.equal(x, y)]
+            if crashed.losses != straight.losses[TRAIN_FAIL_AT:] or bad:
+                raise AssertionError(
+                    f"{arch}: resumed {crashed.losses} != straight "
+                    f"{straight.losses[TRAIN_FAIL_AT:]}, leaves {bad}")
+            if any(launches.values()):
+                raise AssertionError(f"{arch}: model kernels launched in "
+                                     f"training: {launches}")
+            out[arch] = {"losses": straight.losses, "jax_pins": pins,
+                         "max_rel_vs_jax": max(rel),
+                         "resumed_from": crashed.resumed_from,
+                         "resumed_equals_straight": True,
+                         "kernel_launches": launches,
+                         "seconds": time.perf_counter() - t1}
+    return {"phase": "train_pins", "card": card, "shape": TRAIN_SHAPE,
+            "steps": TRAIN_STEPS, "fail_at": TRAIN_FAIL_AT,
+            "tolerance": TRAIN_TOL, **out,
+            "seconds": time.perf_counter() - t0}
+
+
+def token_ce(cfg, logits, tokens) -> float:
+    """Mean next-token cross entropy of (B, S, V) logits, the padded
+    vocabulary masked as the loss masks it."""
+    lg = logits[:, :-1].float()
+    lg = torch.where(torch.arange(lg.shape[-1], device=lg.device)
+                     < cfg.vocab, lg, layers.NEG_INF)
+    lse = torch.logsumexp(lg, -1)
+    picked = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return float((lse - picked).mean())
+
+
+def refuse_grad_check(dev) -> list:
+    """Each model kernel's wrapper, given inputs that require grad, raises
+    and launches nothing."""
+    g = torch.Generator(dev).manual_seed(0)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=dtype).requires_grad_(True)
+
+    q, k, v = r(1, 64, 2, 64), r(1, 64, 2, 64), r(1, 64, 2, 64)
+    a = torch.rand((1, 16, 32), generator=g, device=dev).requires_grad_(True)
+    b, h0 = r(1, 16, 32, dtype=torch.float32), r(1, 32, dtype=torch.float32)
+    mq, mk, mv = r(1, 8, 1, 64), r(1, 8, 1, 64), r(1, 8, 1, 64)
+    lf, li = r(1, 8, 1, dtype=torch.float32), r(1, 8, 1, dtype=torch.float32)
+    C0 = torch.zeros((1, 1, 64, 64), device=dev)
+    n0 = torch.zeros((1, 1, 64), device=dev)
+    calls = {"flash_attention": lambda: fops.flash_attention(q, k, v),
+             "decode_attention": lambda: dops.decode_attention(
+                 q[:, :1], k, v, 64),
+             "rglru_scan": lambda: rops.rglru_scan(a, b, h0),
+             "mlstm_chunk": lambda: xops.mlstm_chunk(mq, mk, mv, lf, li, C0,
+                                                     n0)}
+    before = kernel_launches()
+    raised = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward kernel" not in str(e):
+                raise
+            raised.append(name)
+            continue
+        raise AssertionError(f"{name} launched on inputs that require grad")
+    if kernel_launches() != before:
+        raise AssertionError("a kernel launched under grad")
+    return raised
+
+
+def train_full_phase(dev, card) -> dict:
+    """FULL_TRAIN_ARCH at full width and depth: FULL_TRAIN_STEPS steps of
+    make_train_step (AdamW, f32 parameters and moments on the card),
+    every leaf's gradient finite and not all zero, step 0's CE against
+    the kernel route's logits on the same batch, no model kernel launched
+    while training; step ms, tokens/s and peak memory."""
+    t0 = time.perf_counter()
+    cfg = get_config(FULL_TRAIN_ARCH)
+    run = RunConfig(**FULL_TRAIN_RUN)
+    seq, gb = FULL_TRAIN_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, run, torch.Generator(dev).manual_seed(0))
+    n_params = sum(t.numel() for t in lm.tree_leaves(state["params"]))
+    stream = TokenStream(cfg, ShapeConfig("train_full", seq, gb, "train"),
+                         seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(i).items()}
+               for i in range(FULL_TRAIN_STEPS)]
+    # the kernel route's logits (flash attention) for step 0's batch
+    reset_kernel_launches()
+    with torch.no_grad():
+        logits, _, _ = lm.forward(cfg, run, state["params"], batches[0])
+        ce_kernel = token_ce(cfg, logits, batches[0]["tokens"])
+    kernel_route = kernel_launches()
+    if kernel_route["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"kernel route launches {kernel_route}")
+    del logits
+    # every leaf's gradient, on step 0's batch
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads, m0 = grads_and_metrics(cfg, run, state["params"], batches[0])
+    torch.cuda.synchronize()
+    grad_pass_ms = (time.perf_counter() - t1) * 1e3
+    bad = [i for i, t in enumerate(lm.tree_leaves(grads))
+           if not (bool(torch.isfinite(t).all()) and bool((t != 0).any()))]
+    n_leaves = len(lm.tree_leaves(grads))
+    del grads
+    if bad:
+        raise AssertionError(f"leaves {bad} of {n_leaves}: a gradient not "
+                             "finite or all zero")
+    step_fn = make_train_step(cfg, run)
+    losses, ces, step_ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        ces.append(float(m["ce"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = abs(ces[0] - ce_kernel) / abs(ce_kernel)
+    if any(launches.values()):
+        raise AssertionError(f"model kernels launched in training: "
+                             f"{launches}")
+    if not all(map(math.isfinite, losses)) or rel > TRAIN_TOL:
+        raise AssertionError(f"losses {losses}; step 0's CE {ces[0]} vs the "
+                             f"kernel route's {ce_kernel} (relative {rel})")
+    if losses[0] != float(m0["loss"]):
+        raise AssertionError(f"step 0's loss {losses[0]} != the gradient "
+                             f"pass's {float(m0['loss'])}")
+    raised = refuse_grad_check(dev)
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    del state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "train_full", "card": card, "arch": FULL_TRAIN_ARCH,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "params": n_params, "seq_len": seq,
+            "global_batch": gb, "remat_policy": run.remat_policy,
+            "loss_chunk": run.loss_chunk, "losses": losses, "ce": ces,
+            "ce_kernel_route": ce_kernel, "ce_rel_vs_kernel_route": rel,
+            "grad_leaves_finite_nonzero": n_leaves,
+            "kernel_launches": launches,
+            "kernel_route_launches": kernel_route,
+            "refuse_grad": raised, "grad_pass_ms": grad_pass_ms,
+            "step_ms": step_ms,
+            "steady_step_ms": steady,
+            "tokens_per_s": gb * seq / (steady / 1e3),
+            "peak_gib": peak, "seconds": time.perf_counter() - t0}
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
     lanes leave a ragged last block at 3): the kernel equals the plain
@@ -3684,7 +4010,14 @@ def main(argv=None) -> int:
     emit({**line, "seconds": time.perf_counter() - t0,
           "script_s": time.perf_counter() - t_script})
 
-    # 24. the kernel table, the card, and the device line (last)
+    # 24-25. training: the fault-tolerant loop at SMOKE against the JAX
+    #        package's pinned losses, then qwen3-1.7b at full width
+    emit({**train_pins_phase(dev, card),
+          "script_s": time.perf_counter() - t_script})
+    emit({**train_full_phase(dev, card),
+          "script_s": time.perf_counter() - t_script})
+
+    # 26. the kernel table, the card, and the device line (last)
     attn_src = {
         "flash": ("flash_attention",
                   "src/repro_torch/kernels/flash_attention/csrc/"

@@ -49,6 +49,16 @@ the census stream, 0 dropped), and the chaos soak at 128 lanes (its
 ledger summary and the rids whose published state a bit-flip reached,
 each checked to differ from its census lane by exactly one injected
 bit).  ~30 minutes on a CPU.
+
+The training half (``--only train``) runs ``repro.train.loop.run_training``
+through chip_smoke.py's ``train_pin_runs``: for each of its
+``TRAIN_ARCHS`` (SMOKE), the parameters of chip_smoke.py's
+``numpy_params`` saved as a step-0 checkpoint, ``TRAIN_STEPS`` steps
+straight, and again with an ``InjectedFailure`` at ``TRAIN_FAIL_AT`` and
+the auto-resume (checked equal to the straight run's losses); the
+straight run's per-step losses are the pins (``TRAIN_PINS``), which
+chip_smoke.py's ``train_pins`` phase holds the port's losses on the card
+to within 2e-2 relative.  Under a minute on a CPU.
 """
 from __future__ import annotations
 
@@ -76,12 +86,20 @@ from repro.serve.chaos import ChaosMonkey  # noqa: E402
 from repro.serve.durability import DurabilityManager  # noqa: E402
 from repro.serve.fleet_server import FleetServer  # noqa: E402
 from repro.trace import TraceStream  # noqa: E402
+from repro.configs import RunConfig, ShapeConfig, get_smoke  # noqa: E402
+from repro.train import loop as train_loop  # noqa: E402
 
 JAX = types.SimpleNamespace(
     FleetServer=FleetServer, PolicyScheduler=PolicyScheduler,
     TenantBudget=TenantBudget, prepare=prepare, programs=programs,
     Mechanism=Mechanism, HookConfig=HookConfig,
     DurabilityManager=DurabilityManager, ChaosMonkey=ChaosMonkey)
+
+
+JAX_TRAIN = types.SimpleNamespace(
+    run_training=train_loop.run_training,
+    InjectedFailure=train_loop.InjectedFailure, RunConfig=RunConfig,
+    ShapeConfig=ShapeConfig, get_smoke=get_smoke)
 
 
 def _chip_smoke():
@@ -298,11 +316,24 @@ def durable_pins(smoke) -> dict:
     return out
 
 
+def train_pins(smoke) -> dict:
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="torch-port-pins-train-") as d:
+        for arch in smoke.TRAIN_ARCHS:
+            runs = smoke.train_pin_runs(JAX_TRAIN, arch, d)
+            straight, crashed = runs["straight"], runs["crashed"]
+            assert crashed.resumed_from == smoke.TRAIN_FAIL_AT
+            assert crashed.losses == straight.losses[smoke.TRAIN_FAIL_AT:]
+            out[arch] = straight.losses
+    return {"train": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="exit 1 unless chip_smoke.py's pins match")
-    ap.add_argument("--only", choices=("census", "server", "durable"),
+    ap.add_argument("--only", choices=("census", "server", "durable",
+                                       "train"),
                     default=None, help="recompute one part only")
     args = ap.parse_args(argv)
     smoke = _chip_smoke()
@@ -323,6 +354,9 @@ def main(argv=None) -> int:
                      "kill_recover": smoke.KILL_RECOVER_EXPECTED,
                      "traced_recover": smoke.TRACED_RECOVER_EXPECTED,
                      "chaos_soak": smoke.CHAOS_SOAK_EXPECTED})
+    if args.only in (None, "train"):
+        got.update(train_pins(smoke))
+        want.update({"train": smoke.TRAIN_PINS})
     if args.only in (None, "server"):
         got.update(server_pins(smoke))
         want.update({"served": smoke.FS_SERVED_EXPECTED,

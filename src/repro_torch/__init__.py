@@ -13,6 +13,10 @@ model family the JAX package defines (:mod:`repro_torch.configs`,
 the card through the CUDA flash-attention and flash-decode kernels,
 recurrentgemma's RG-LRU scan through the CUDA rglru_scan kernel, the
 mLSTM through the CUDA mlstm_chunk kernels; the MoE's routing and
-experts are PyTorch operations.  :mod:`repro_torch.numerics` rounds the
-CPU route's f32 arithmetic as the JAX package's CPU backend does.
+experts are PyTorch operations; and training (:mod:`repro_torch.data`,
+:mod:`repro_torch.optim`, :mod:`repro_torch.train`,
+``python -m repro_torch.launch.train``), which runs the models' plain
+forms under autograd on every device, as the JAX package trains through
+its XLA forms.  :mod:`repro_torch.numerics` rounds the CPU route's f32
+arithmetic as the JAX package's CPU backend does, differentiably.
 """

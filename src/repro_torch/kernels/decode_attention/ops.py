@@ -10,6 +10,8 @@ by side and merges them in a fixed order (the same bits every call).
 ``decode_attention.launches`` counts calls of the kernel: one a call,
 which launches the split kernel and, with more than one split, the merge
 (it stays 0 on the CPU).
+A CUDA call whose inputs require grad, with grad mode on, raises
+(:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import operator
 
 import torch
 
+from .. import refuse_grad
 from ..flash_attention.ops import check_aligned, check_qkv
 from .kernel import HEAD_DIMS, MAX_GROUP, decode_attention_cuda
 from .ref import decode_attention_ref
@@ -70,6 +73,7 @@ def decode_attention(q, k, v, kv_len):
         return decode_attention_plain(q, k, v, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k, v)
     B, _, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv

@@ -11,11 +11,14 @@ f32 products hold the f32 bound that bf16 or TF32 tensor cores cannot; a
 bf16 instance that fails to build or launch raises.  The tile is each
 kernel's own.  ``flash_attention.launches`` counts kernel launches (it
 stays 0 on the CPU).
+A CUDA call whose inputs require grad, with grad mode on, raises
+(:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .kernel import DTYPES, HEAD_DIMS, flash_attention_cuda
 from .ref import attention_ref
 
@@ -74,6 +77,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     if hd not in HEAD_DIMS:

@@ -10,11 +10,14 @@ the decode step — or raises: there is no fallback.  ``out=(C, n)`` asks
 for the new state in the caller's tensors; at S = 1 they may be the state
 passed in (the decode step in place).  ``mlstm_chunk.launches`` counts
 calls that launched the kernels, one a call (it stays 0 on the CPU).
+A CUDA call whose inputs require grad, with grad mode on, raises
+(:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .kernel import (CHUNK, MAX_BLOCKS, MAX_DH, mlstm_decode_cuda,
                      mlstm_prefill_cuda)
 from .ref import mlstm_chunk_ref
@@ -98,6 +101,7 @@ def mlstm_chunk(q, k, v, log_f, log_i, C0, n0, *, chunk: int = CHUNK,
         return h, out[0], out[1]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("mlstm_chunk", q, k, v, log_f, log_i, C0, n0)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"q: {q.dtype}; the kernel takes bfloat16 q/k/v")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -110,8 +110,7 @@ def mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, K: int):
         inter_n = numerics.einsum("bkhd,bhd->bkh", q_dec, n)
         # intra-chunk: the decay from l to j is exp(d_j - d_l), gated by i_l
         rel = d_cum[:, :, None, :] - d_cum[:, None, :, :] + li[:, None]
-        rel = torch.where(causal[None, :, :, None], rel,
-                          torch.tensor(-float("inf"), device=q.device))
+        rel = torch.where(causal[None, :, :, None], rel, -float("inf"))
         w = numerics.exp(torch.clamp_max(rel, 30.0))
         raw = numerics.einsum("bjhd,blhd->bjlh", qc, kc)
         scores = raw * w

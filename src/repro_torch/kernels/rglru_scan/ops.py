@@ -5,11 +5,14 @@ the plain version (:func:`.ref.rglru_scan_ref`, the associative scan the
 JAX model runs); for CUDA tensors it launches the CUDA kernel
 (:mod:`.kernel`), or raises — there is no fallback.
 ``rglru_scan.launches`` counts kernel launches (it stays 0 on the CPU).
+A CUDA call whose inputs require grad, with grad mode on, raises
+(:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .kernel import MAX_BATCH, rglru_scan_cuda
 from .ref import rglru_scan_ref
 
@@ -41,6 +44,7 @@ def rglru_scan(a, b, h0):
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
+    refuse_grad("rglru_scan", a, b, h0)
     for name, t in (("a", a), ("b", b), ("h0", h0)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")

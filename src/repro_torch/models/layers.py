@@ -16,17 +16,28 @@ route that ``RunConfig.attn_impl`` names: prefill to flash attention,
 decode (one query position against a cache of ``kv_len`` live positions)
 to flash-decode.  Those compute their TPU kernels' function, which keeps
 the probabilities in f32 for P V, so the two routes differ at the bf16
-rounding of P.  Training-only features of the JAX function
-(``chunk_remat``) and the mesh sharding constraints are not ported: the
-port is inference on one device.
+rounding of P.
+
+No kernel has a backward (nor has any TPU kernel of the JAX package), so
+training runs the plain forms on every device, as the JAX package trains
+through its XLA forms: inside :func:`xla_route` attention, the RG-LRU
+scan and the mLSTM take their plain versions on CUDA tensors too, and
+:func:`checkpoint` (``torch.utils.checkpoint``, non-reentrant) recomputes
+under the route its first run saw.  The route is a context, not a mode:
+the encoder runs in mode ``"train"`` while serving and keeps its kernel.
+``chunk_remat`` checkpoints each query chunk of the plain attention.  The
+mesh sharding constraints are not ported: the port runs on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import numerics
 from ..configs.base import ModelConfig
@@ -37,6 +48,64 @@ COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 
 NEG_INF = -1e30
+
+_ROUTE = threading.local()
+
+
+def xla_active() -> bool:
+    """Whether the plain (XLA) route is on in this thread."""
+    return getattr(_ROUTE, "on", False)
+
+
+@contextlib.contextmanager
+def xla_route(on: bool = True):
+    """Run the model's plain forms on every device (``on``), or the
+    kernels on CUDA tensors (``on=False``), inside the block."""
+    prev = xla_active()
+    _ROUTE.on = on
+    try:
+        yield
+    finally:
+        _ROUTE.on = prev
+
+
+class _Recompute:
+    """:func:`checkpoint`'s recompute context: ``inner`` and the route of
+    the first run, entered afresh at every recompute.  Re-enterable, a
+    stack per thread: a frame is recomputed once for each backward pass
+    that reaches it, on the thread the autograd engine runs it on (a
+    CUDA graph's nodes run on the engine's device thread)."""
+
+    def __init__(self, inner, on: bool):
+        self.inner, self.on = inner, on
+        self.local = threading.local()
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(self.inner)
+        stack.enter_context(xla_route(self.on))
+        self.local.__dict__.setdefault("stacks", []).append(stack)
+
+    def __exit__(self, *exc):
+        return self.local.stacks.pop().__exit__(*exc)
+
+
+def checkpoint(fn, *args, context_fn=None):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)`` whose
+    recompute runs under the route of this call.  ``context_fn`` (e.g.
+    ``create_selective_checkpoint_contexts``) gives the (forward,
+    recompute) contexts to enter as well."""
+    on = xla_active()
+
+    def contexts():
+        fwd, rec = (context_fn() if context_fn is not None
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _Recompute(rec, on)
+
+    # the model draws no random numbers: no RNG state to save and restore
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             context_fn=contexts,
+                                             preserve_rng_state=False)
 
 
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None):
@@ -131,8 +200,9 @@ def _sdpa(q, k, v, mask, scale: float):
     Both products take their operands in the input dtype and accumulate
     in f32 (the JAX einsums' ``preferred_element_type`` and bf16 dot)."""
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.tensor(NEG_INF, device=logits.device))
+    # a Python scalar: a scalar tensor made on the card is a host copy
+    # that waits for the device
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
     return out.to(v.dtype)
@@ -140,9 +210,11 @@ def _sdpa(q, k, v, mask, scale: float):
 
 def attention_plain(q, k, v, *, causal: bool, window: int = 0,
                     q_offset: int = 0, kv_len: Optional[int] = None,
-                    chunk: int = 0):
+                    chunk: int = 0, chunk_remat: bool = False):
     """The plain form of :func:`attention` (the JAX package's, chunked
-    over queries when ``chunk`` divides Sq and Sq > chunk)."""
+    over queries when ``chunk`` divides Sq and Sq > chunk; with
+    ``chunk_remat`` each chunk is checkpointed, so its backward keeps one
+    chunk's probabilities at a time and recomputes them)."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -168,6 +240,11 @@ def attention_plain(q, k, v, *, causal: bool, window: int = 0,
         out = _sdpa(qg, k, v, mask_for(q_positions), scale)
         return out.reshape(B, Sq, Hq, hd)
 
+    def sdpa(*a):
+        if chunk_remat and torch.is_grad_enabled():
+            return checkpoint(_sdpa, *a)
+        return _sdpa(*a)
+
     outs = []
     if window and window + chunk < Skv:
         # local attention: only the [pos-window, pos] key band is live.
@@ -185,36 +262,39 @@ def attention_plain(q, k, v, *, causal: bool, window: int = 0,
                 m = m & (b_pos[None, :] <= q_positions[:, None])
             m = m & (b_pos[None, :] > q_positions[:, None] - window)
             m = m[None].expand(B, chunk, band)
-            outs.append(_sdpa(qg[:, start:start + chunk], kb, vb, m, scale))
+            outs.append(sdpa(qg[:, start:start + chunk], kb, vb, m, scale))
     else:
         for i in range(Sq // chunk):
             start = i * chunk
             q_positions = q_offset + start + torch.arange(chunk, device=dev)
-            outs.append(_sdpa(qg[:, start:start + chunk], k, v,
-                              mask_for(q_positions), scale))
+            outs.append(sdpa(qg[:, start:start + chunk], k, v,
+                             mask_for(q_positions), scale))
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, hd)
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0,
               q_offset: int = 0, kv_len: Optional[int] = None,
-              chunk: int = 0):
+              chunk: int = 0, chunk_remat: bool = False):
     """Grouped-query attention with optional causal mask / local window.
 
     q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd).
     ``q_offset``: absolute position of q[0].  ``kv_len``: number of valid
     kv positions (decode with a preallocated cache), a host int.
-    ``chunk``: the plain form's query chunk (no effect on the kernels).
+    ``chunk``, ``chunk_remat``: the plain form's query chunk and its
+    checkpointing (no effect on the kernels).
 
     CUDA tensors go to a kernel: one query position, not causal, no
     window, against a cache of ``kv_len`` live positions (self-attention
     decode) or against the whole of it (cross-attention decode: ``kv_len``
     is then Skv) to flash-decode; every other full-sequence form (no
     ``kv_len``, ``q_offset`` 0: prefill, the encoder, cross-attention
-    prefill) to flash attention; any other form raises.  CPU tensors take
-    the plain form of this function, the JAX model's."""
-    if q.device.type != "cuda":
+    prefill) to flash attention; any other form raises.  CPU tensors, and
+    every tensor inside :func:`xla_route`, take the plain form of this
+    function, the JAX model's."""
+    if q.device.type != "cuda" or xla_active():
         return attention_plain(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, kv_len=kv_len, chunk=chunk)
+                               q_offset=q_offset, kv_len=kv_len, chunk=chunk,
+                               chunk_remat=chunk_remat)
     if q.shape[1] == 1 and not causal and not window:
         return decode_attention(q, k, v,
                                 k.shape[1] if kv_len is None else kv_len)

@@ -50,22 +50,32 @@ the sLSTM is plain PyTorch, a loop over time, on both devices
 combine (:mod:`repro_torch.models.moe`).  The xLSTM blocks have no MLP
 (``ln2``/``mlp``), as in the JAX model.  ``forward`` returns the MoE's
 auxiliary loss, summed over the blocks.
+
+Training: :func:`loss_fn` (next-token CE, z-loss and the MoE aux, the
+head and xent chunked under ``run.loss_chunk``) runs the plain forms on
+every device (:func:`layers.xla_route`), and ``_run_stack`` in mode
+``"train"`` checkpoints each tile as ``run.remat_policy`` says
+(``torch.utils.checkpoint``; the policies change memory, never a bit).
 """
 from __future__ import annotations
 
+import functools
 import math
 import operator
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig, RunConfig
 from ..core.machine import resolve_device
 from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (COMPUTE_DTYPE, NEG_INF, PARAM_DTYPE, apply_mlp,
-                     attention, attn_out, attn_qkv, dense_init, dot,
-                     init_attn, init_mlp, rms_norm)
+                     attention, attn_out, attn_qkv, checkpoint, dense_init,
+                     dot, init_attn, init_mlp, rms_norm, xla_route)
 
 Params = Dict[str, Any]
 
@@ -239,7 +249,8 @@ def _self_attention(cfg: ModelConfig, run: RunConfig, p: Params, h, *,
 
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     q, k, v = attn_qkv(cfg, p, h, positions[None].expand(B, S))
-    o = attention(q, k, v, causal=causal, window=window, chunk=run.attn_chunk)
+    o = attention(q, k, v, causal=causal, window=window, chunk=run.attn_chunk,
+                  chunk_remat=run.attn_chunk_remat)
     out = attn_out(cfg, p, o)
 
     new_cache = None
@@ -275,8 +286,7 @@ def _masked_decode_attn(q, k, v, mask):
     qg = q.reshape(B, 1, Hkv, G, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           k.float()) / math.sqrt(hd)
-    logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.tensor(NEG_INF, device=logits.device))
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
     return o.to(v.dtype).reshape(B, 1, Hq, hd)
@@ -361,30 +371,74 @@ def _write_back(cache: Params, new: Params) -> None:
             cache[leaf].copy_(t)
 
 
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: keep
+    the products without batch dimensions (``dot``'s projections, 2-D
+    ``mm`` here), recompute the rest (the attention's batched products
+    among them)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(run: RunConfig, mode: str, body, params: Params):
+    """The tile body under ``run.remat_policy`` in a train-mode pass that
+    records gradients of ``params``: ``"nothing"`` checkpoints it (only its
+    inputs are kept), ``"dots"`` keeps the products without batch
+    dimensions, ``"full"`` and ``"none"`` keep everything (the body
+    itself, as every pass that records nothing — serving's encoder)."""
+    policy = run.remat_policy
+    if (mode != "train" or policy in ("none", "full")
+            or not torch.is_grad_enabled()
+            or not any(t.requires_grad for t in tree_leaves(params))):
+        return body
+    if policy == "nothing":
+        return functools.partial(checkpoint, body)
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, body, context_fn=ctx)
+    raise ValueError(f"remat_policy {policy!r}")
+
+
 def _run_stack(cfg: ModelConfig, run: RunConfig, params: Params, x, *,
                mode: str, cache=None, pos=None, enc_out=None, causal=True,
                tiles_key: str = "tiles", tail_key: str = "tail"):
     """Loop the pattern-tiled stack (``tiles_key``: the decoder's or the
     encoder's), then the tail blocks; returns (x, new_cache, aux), aux
-    summed over the blocks in stack order."""
+    summed over the blocks in stack order.  In mode ``"train"`` each tile
+    runs under ``run.remat_policy`` (:func:`_remat`; the tail blocks
+    without, as the JAX package's scan checkpoints its body only)."""
     pat = cfg.block_pattern if tiles_key == "tiles" else ("attn",)
     tiles = params[tiles_key]
     tile_caches = cache[tiles_key] if cache else None
     n_tiles = tree_leaves(tiles)[0].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = dict(mode=mode, pos=pos, enc_out=enc_out, causal=causal)
-    per_tile = []
-    for i in range(n_tiles):
+
+    def tile(x, aux, tp, tc):
         new_tc = {}
         for bi, kind in enumerate(pat):
-            tp = tree_map(lambda a: a[i], tiles[f"b{bi}"])
-            bc = (tree_map(lambda a: a[i], tile_caches[f"b{bi}"])
-                  if tile_caches else None)
-            x, new_tc[f"b{bi}"], a = apply_block(cfg, run, kind, tp, x,
-                                                 cache=bc, **kw)
+            bc = tc[f"b{bi}"] if tc else None
+            x, new_tc[f"b{bi}"], a = apply_block(cfg, run, kind, tp[f"b{bi}"],
+                                                 x, cache=bc, **kw)
             aux = aux + a
             if mode == "decode":
                 _write_back(bc, new_tc[f"b{bi}"])
+        return x, aux, new_tc
+
+    body = _remat(run, mode, tile, tiles)
+    # the stacked leaves split once: the backward of unbind writes every
+    # tile's gradient into one stacked tensor, where indexing each tile
+    # would build and sum a zero-padded full-size gradient per tile
+    parts = tree_map(lambda a: a.unbind(0), tiles)
+    per_tile = []
+    for i in range(n_tiles):
+        tp = tree_map(lambda a: a[i], parts)
+        tc = tree_map(lambda a: a[i], tile_caches) if tile_caches else None
+        x, aux, new_tc = body(x, aux, tp, tc)
         per_tile.append(new_tc)
     new_tail = {}
     if tail_key in params:
@@ -415,7 +469,9 @@ def _run_stack(cfg: ModelConfig, run: RunConfig, params: Params, x, *,
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params: Params, tokens, prefix_emb=None):
-    x = params["embed"]["tok"][tokens].to(COMPUTE_DTYPE)
+    # a gather whose backward sums each row's gradients in a fixed order
+    # on the card too (PyTorch's embedding backward sorts the ids)
+    x = F.embedding(tokens, params["embed"]["tok"]).to(COMPUTE_DTYPE)
     if cfg.emb_scale:
         x = x * float(math.sqrt(cfg.d_model))  # stays bf16
     if prefix_emb is not None:
@@ -462,6 +518,57 @@ def forward(cfg: ModelConfig, run: RunConfig, params: Params,
     x, aux, cache = _backbone(cfg, run, params, batch, mode)
     logits = dot(x, _head_weight(cfg, params))
     return logits, aux, (cache if mode == "prefill" else None)
+
+
+def _ce_sums(cfg: ModelConfig, w, x, targets):
+    """The CE and z-loss sums of one chunk of positions: the head's bf16
+    logits cast to f32, the padded vocabulary's columns at -1e30, the
+    log-sum-exp of each row less its target's logit, and the squares of
+    the log-sum-exps."""
+    lg = dot(x, w).float()
+    vocab_ids = torch.arange(lg.shape[-1], device=lg.device)
+    lg = torch.where(vocab_ids < cfg.vocab, lg, NEG_INF)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - picked).sum(), (lse * lse).sum()
+
+
+def loss_fn(cfg: ModelConfig, run: RunConfig, params: Params,
+            batch: Dict[str, Any]):
+    """Next-token CE (+ z-loss, + the MoE aux). Returns (loss, metrics).
+
+    Runs the model's plain forms on every device
+    (:func:`layers.xla_route`: no kernel has a backward).  With
+    ``run.loss_chunk`` the head projection and softmax-xent run a chunk of
+    positions at a time, each checkpointed, so the (B, S, V) f32 logits
+    are never resident; the remainder (the -1 of the target shift) runs
+    unchunked after them."""
+    with xla_route():
+        x, aux, _ = _backbone(cfg, run, params, batch, "train")
+        targets = batch["tokens"][:, 1:]
+        xs = x[:, :-1]
+        B, Sm1, _ = xs.shape
+        w = _head_weight(cfg, params)
+        sums = functools.partial(_ce_sums, cfg, w)
+        chunk = run.loss_chunk
+        if chunk and Sm1 > chunk:
+            main = Sm1 // chunk * chunk
+            ce_sum = z_sum = torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
+            for c0 in range(0, main, chunk):
+                c, z = checkpoint(sums, xs[:, c0:c0 + chunk],
+                                  targets[:, c0:c0 + chunk])
+                ce_sum, z_sum = ce_sum + c, z_sum + z
+            if main < Sm1:
+                c, z = sums(xs[:, main:], targets[:, main:])
+                ce_sum, z_sum = ce_sum + c, z_sum + z
+        else:
+            ce_sum, z_sum = sums(xs, targets)
+    n_tok = B * Sm1
+    ce = ce_sum / n_tok
+    zl = run.z_loss * z_sum / n_tok
+    loss = ce + zl + aux
+    return loss, {"ce": ce, "z_loss": zl, "aux": aux, "loss": loss}
 
 
 def prefill(cfg: ModelConfig, run: RunConfig, params: Params,

@@ -29,6 +29,12 @@ it there either), the products ``x_t W`` inside the step as there.  On
 CPU tensors its f32 products, tanh, sigmoid and fused multiply-adds are
 XLA's (:mod:`repro_torch.numerics`), so the CPU route equals the JAX
 package bit for bit.
+
+Inside :func:`repro_torch.models.layers.xla_route` (training) the scan and
+the mLSTM take their plain versions on every device (``rglru_scan_ref``,
+the chunked ``mlstm_chunk_ref`` at ``run.mlstm_chunk``): no kernel has a
+backward.  The sLSTM is plain on every route; its XLA-exact arithmetic
+on CPU tensors is differentiable (:mod:`repro_torch.numerics`).
 """
 from __future__ import annotations
 
@@ -38,9 +44,11 @@ import torch
 from .. import numerics
 from ..configs.base import ModelConfig
 from ..kernels.mlstm_chunk.ops import mlstm_chunk
+from ..kernels.mlstm_chunk.ref import mlstm_chunk_ref
 from ..kernels.rglru_scan.ops import rglru_scan
+from ..kernels.rglru_scan.ref import rglru_scan_ref
 from .layers import (PARAM_DTYPE, dense_init, dot, gelu, rms_norm, sigmoid,
-                     silu)
+                     silu, xla_active)
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
@@ -106,7 +114,7 @@ def apply_rglru(cfg: ModelConfig, p: dict, x, cache=None):
         h0 = torch.zeros_like(a[:, 0])
     else:
         h0 = cache["h"].float()
-    h = rglru_scan(a, b, h0)
+    h = (rglru_scan_ref if xla_active() else rglru_scan)(a, b, h0)
     y = gelu(gate) * h.to(dt)
     y = dot(y, p["w_down"].to(dt))
     return y, {"h": h[:, -1].contiguous(), "conv": new_conv.float()}
@@ -153,7 +161,10 @@ def mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk: int, *,
     (B, S, H) f32, (C0, n0) the state; returns (h f32, C, n), C and n in
     ``out`` when it is given.  The function
     :func:`repro_torch.kernels.mlstm_chunk.ops.mlstm_chunk` computes (its
-    plain version on CPU tensors, the kernels on the card)."""
+    plain version on CPU tensors and inside the XLA route, the kernels on
+    the card)."""
+    if xla_active() and out is None:
+        return mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, chunk)
     return mlstm_chunk(q, k, v, log_f, log_i, C0, n0, chunk=chunk, out=out)
 
 
@@ -181,7 +192,8 @@ def apply_mlstm(cfg: ModelConfig, p: dict, x, cache=None, chunk: int = 256):
         n0 = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
     else:
         C0, n0, chunk = cache["C"], cache["n"], 1
-    out = (C0, n0) if cache is not None and x.is_cuda else None
+    in_place = cache is not None and x.is_cuda and not xla_active()
+    out = (C0, n0) if in_place else None
     h, C, n = mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk,
                                  out=out)
     y = h.reshape(B, S, di).to(dt) * silu(gate)

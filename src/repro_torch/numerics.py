@@ -24,6 +24,15 @@ bits.
 :func:`fma` is exact on every device: the product in f64 is exact, and
 the f64 sum rounded to odd (TwoSum's error sets the last bit) then to f32
 is the correctly rounded f32 result.
+
+Every function is differentiable.  Those that build their value from bit
+patterns (``int`` views and shifts, which autograd cannot follow) run as
+a ``torch.autograd.Function`` whose forward is that exact value and whose
+backward is the JAX package's own VJP rule for the operation — exp: g
+ans; tanh: (g + g ans)(1 - ans); fma(a, b, c): (g b, g a, g); a sum, an
+einsum or a cumulative sum: the VJP of PyTorch's plain form (a reverse
+cumulative sum) — evaluated in PyTorch's arithmetic: gradients are held
+to bounds, not bits.  The forward bits do not change under autograd.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ def _tensor(x, like):
         x, dtype=torch.float32, device=like.device)
 
 
-def fma(a, b, c):
+def _fma(a, b, c):
     """round_f32(a * b + c), one rounding.  Any operand may be a float."""
     like = next(x for x in (a, b, c) if torch.is_tensor(x))
     a, b, c = (_tensor(x, like).double() for x in (a, b, c))
@@ -75,13 +84,13 @@ _EXP_P = [_f32(h) for h in (
 
 def _exp_xla(x):
     x = torch.clamp(x, _EXP_LO, _EXP_HI)
-    fx = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
-    r = fma(fx, -_LN2_HI, x)
-    r = fma(fx, -_LN2_LO, r)
-    p = fma(r, _EXP_P[0], _EXP_P[1])
+    fx = torch.clamp(torch.floor(_fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = _fma(fx, -_LN2_HI, x)
+    r = _fma(fx, -_LN2_LO, r)
+    p = _fma(r, _EXP_P[0], _EXP_P[1])
     for c in (*_EXP_P[2:], 0.5):
-        p = fma(p, r, c)
-    p = fma(p, r * r, r) + 1.0
+        p = _fma(p, r, c)
+    p = _fma(p, r * r, r) + 1.0
     return p * ((fx.to(torch.int32) << 23) + 0x3F800000).view(torch.float32)
 
 
@@ -106,11 +115,11 @@ def _log1p_xla(x):
     x2 = x * x
     q = torch.ones_like(x)
     for c in _L1P_Q:
-        q = fma(q, x, c)
+        q = _fma(q, x, c)
     p = torch.full_like(x, _L1P_P[0])
     for c in _L1P_P[1:]:
-        p = fma(p, x, c)
-    small = x + fma(x2, -0.5, (x * x2) * (p / q))
+        p = _fma(p, x, c)
+    small = x + _fma(x2, -0.5, (x * x2) * (p / q))
 
     x1 = x + 1.0
     bits = torch.clamp_min(x1, _FLT_MIN).view(torch.int32)
@@ -122,11 +131,11 @@ def _log1p_xla(x):
     zz = z * z
     z3 = zz * z
     c = _LOG_P
-    pa = fma(fma(z, c[0], c[1]), z, c[6])
-    pb = fma(fma(z, c[2], c[3]), z, c[7])
-    pc = fma(fma(z, c[4], c[5]), z, c[8])
-    poly = fma(fma(pa, z3, pb), z3, pc)
-    big = fma(e, _LN2_HI, fma(zz, -0.5, z) + fma(poly, z3, e * _LN2_LO))
+    pa = _fma(_fma(z, c[0], c[1]), z, c[6])
+    pb = _fma(_fma(z, c[2], c[3]), z, c[7])
+    pc = _fma(_fma(z, c[4], c[5]), z, c[8])
+    poly = _fma(_fma(pa, z3, pb), z3, pc)
+    big = _fma(e, _LN2_HI, _fma(zz, -0.5, z) + _fma(poly, z3, e * _LN2_LO))
     big = torch.where(x1 == float("inf"), x1, big)
     big = torch.where(x1 == 0, torch.full_like(x1, -float("inf")), big)
     big = torch.where(~(x1 >= 0), torch.full_like(x1, float("nan")), big)
@@ -150,12 +159,12 @@ _TANH_Q = [_f32(h) for h in (
 def _tanh_xla(x):
     xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
     x2 = xc * xc
-    p = fma(x2, _TANH_P[0], _TANH_P[1])
+    p = _fma(x2, _TANH_P[0], _TANH_P[1])
     for c in _TANH_P[2:]:
-        p = fma(x2, p, c)
-    q = fma(x2, _TANH_Q[0], _TANH_Q[1])
+        p = _fma(x2, p, c)
+    q = _fma(x2, _TANH_Q[0], _TANH_Q[1])
     for c in _TANH_Q[2:]:
-        q = fma(x2, q, c)
+        q = _fma(x2, q, c)
     out = torch.where(x.abs() < _TANH_SMALL, x, (xc * p) / q)
     return torch.where(x.abs() >= 20.0, torch.copysign(
         torch.ones_like(x), x), out)
@@ -165,32 +174,111 @@ def _on_cpu(x) -> bool:
     return x.device.type == "cpu"
 
 
+# ---------------------------------------------------------------------------
+# autograd: each function above that builds its value from bit patterns is
+# wrapped in a torch.autograd.Function whose forward is that exact value
+# and whose backward is the JAX package's own VJP rule for the operation
+# (evaluated with PyTorch's arithmetic: gradients are held to bounds)
+# ---------------------------------------------------------------------------
+
+def _unbroadcast(g, like):
+    """The VJP of broadcasting ``like`` to g's shape: g summed over the
+    broadcast dimensions, in ``like``'s dtype; None for a float operand."""
+    if not torch.is_tensor(like):
+        return None
+    while g.dim() > like.dim():
+        g = g.sum(0)
+    for i, n in enumerate(like.shape):
+        if n == 1 and g.shape[i] != 1:
+            g = g.sum(i, keepdim=True)
+    return g.to(like.dtype)
+
+
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.consts = [None if torch.is_tensor(x) else x for x in (a, b, c)]
+        ctx.save_for_backward(*(x if torch.is_tensor(x) else None
+                                for x in (a, b, c)))
+        return _fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, c = (t if k is None else k
+                   for t, k in zip(ctx.saved_tensors, ctx.consts))
+        need = ctx.needs_input_grad
+        return (_unbroadcast(g * b, a) if need[0] else None,
+                _unbroadcast(g * a, b) if need[1] else None,
+                _unbroadcast(g, c) if need[2] else None)
+
+
+def _unary(name: str, value, vjp):
+    """``value(x)`` with the VJP ``vjp(g, x, ans)``, as an autograd
+    Function's ``apply``."""
+
+    def forward(ctx, x):
+        ans = value(x)
+        ctx.save_for_backward(x, ans)
+        return ans
+
+    def backward(ctx, g):
+        x, ans = ctx.saved_tensors
+        return vjp(g, x, ans)
+
+    cls = type(name, (torch.autograd.Function,),
+               {"forward": staticmethod(forward),
+                "backward": staticmethod(backward)})
+    return cls.apply
+
+
+_exp_cpu = _unary("_Exp", lambda x: _exp_xla(x.float()).to(x.dtype),
+                  lambda g, x, ans: g * ans)
+_log1p_cpu = _unary("_Log1p", lambda x: _log1p_xla(x.float()).to(x.dtype),
+                    lambda g, x, ans: g / (x + 1))
+_tanh_cpu = _unary("_Tanh", lambda x: _tanh_xla(x.float()).to(x.dtype),
+                   lambda g, x, ans: (g + g * ans) * (1 - ans))
+_sqrt_cpu = _unary("_Sqrt", lambda x: torch.sqrt(x.double()).to(x.dtype),
+                   lambda g, x, ans: g * (0.5 / ans))
+_rsqrt_cpu = _unary("_Rsqrt", lambda x: torch.rsqrt(x.double()).to(x.dtype),
+                    lambda g, x, ans: g * (-0.5 * (ans / x)))
+
+
+def fma(a, b, c):
+    """round_f32(a * b + c), one rounding, on every device.  Any operand
+    may be a float; differentiable (VJP: g b, g a, g)."""
+    if any(torch.is_tensor(x) and x.requires_grad for x in (a, b, c)):
+        return _Fma.apply(a, b, c)
+    return _fma(a, b, c)
+
+
 def exp(x):
     """exp in x's dtype (bf16 computes in f32 and rounds once, as XLA
-    does)."""
+    does); VJP g * ans."""
     if not _on_cpu(x):
         return torch.exp(x)
-    return _exp_xla(x.float()).to(x.dtype)
+    return _exp_cpu(x)
 
 
 def log1p(x):
+    """VJP g / (1 + x)."""
     if not _on_cpu(x):
         return torch.log1p(x)
-    return _log1p_xla(x.float()).to(x.dtype)
+    return _log1p_cpu(x)
 
 
 def sqrt(x):
     """Correctly rounded (via f64 on the CPU: rounding twice is exact for
-    a square root)."""
+    a square root); VJP g * (0.5 / ans)."""
     if not _on_cpu(x):
         return torch.sqrt(x)
-    return torch.sqrt(x.double()).to(x.dtype)
+    return _sqrt_cpu(x)
 
 
 def tanh(x):
+    """VJP (g + g * ans) * (1 - ans)."""
     if not _on_cpu(x):
         return torch.tanh(x)
-    return _tanh_xla(x.float()).to(x.dtype)
+    return _tanh_cpu(x)
 
 
 def muladd(a, b, c):
@@ -201,17 +289,66 @@ def muladd(a, b, c):
     return fma(a, b, c) if _on_cpu(like) else a * b + c
 
 
-def softplus(x):
-    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+def _softplus_value(x):
     out = torch.clamp_min(x, 0.0) + log1p(exp(-x.abs()))
     return torch.where(torch.isnan(x), x, out)
 
 
+_softplus = _unary("_Softplus", _softplus_value,
+                   lambda g, x, ans: g * torch.exp(x - ans))
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``; VJP g * exp(x - ans)
+    (``logaddexp``'s own rule)."""
+    return _softplus(x)
+
+
 def rsqrt(x):
-    """1 / sqrt(x), correctly rounded on the CPU (see the module's note)."""
+    """1 / sqrt(x), correctly rounded on the CPU (see the module's note);
+    VJP g * (-0.5 * ans / x)."""
     if not _on_cpu(x):
         return torch.rsqrt(x)
-    return torch.rsqrt(x.double()).to(x.dtype)
+    return _rsqrt_cpu(x)
+
+
+def _plain_vjp(plain, g, needs, *args):
+    """The VJP of ``plain(*args)`` (the same function in PyTorch's
+    differentiable operations) at the tensors of ``args`` that ``needs``
+    marks, None elsewhere."""
+    with torch.enable_grad():
+        xs = [a.detach().requires_grad_(n) if torch.is_tensor(a) else a
+              for a, n in zip(args, needs)]
+        wrt = [x for x, n in zip(xs, needs) if n]
+        grads = iter(torch.autograd.grad(plain(*xs), wrt, g)) if wrt else None
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _Exact(torch.autograd.Function):
+    """``exact(*args)``'s value with ``plain(*args)``'s VJP."""
+
+    @staticmethod
+    def forward(ctx, exact, plain, *args):
+        ctx.plain = plain
+        ctx.consts = [None if torch.is_tensor(a) else a for a in args]
+        ctx.save_for_backward(*(a if torch.is_tensor(a) else None
+                                for a in args))
+        return exact(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = [t if k is None else k
+                for t, k in zip(ctx.saved_tensors, ctx.consts)]
+        return (None, None) + _plain_vjp(ctx.plain, g,
+                                         ctx.needs_input_grad[2:], *args)
+
+
+def _exact(exact, plain, *args):
+    """``exact(*args)``, differentiable through ``plain`` when a tensor
+    argument requires grad."""
+    if any(torch.is_tensor(a) and a.requires_grad for a in args):
+        return _Exact.apply(exact, plain, *args)
+    return exact(*args)
 
 
 _WINDOW = 32  # XLA's CPU reduction splits a row into windows of this size
@@ -237,7 +374,7 @@ def _sum_last(x, y):
     if n <= _WINDOW:
         acc = torch.zeros_like(x[..., 0])
         for i in range(n):
-            acc = fma(x[..., i], y[..., i], acc)
+            acc = _fma(x[..., i], y[..., i], acc)
         return acc
     x = x * y
     while x.shape[-1] > _WINDOW:
@@ -252,19 +389,28 @@ def mean_sq(x):
     """mean(x * x) over the last axis of f32 ``x``, keeping the axis; on
     the CPU in XLA's order (:func:`_sum_last`).  The mean multiplies by
     1/N rounded to f32."""
-    n = x.shape[-1]
     if not _on_cpu(x):
         return torch.mean(x * x, dim=-1, keepdim=True)
-    return (_sum_last(x, x) * float(np.float32(1.0 / n)))[..., None]
+    return _exact(_mean_sq_xla, lambda t: torch.mean(t * t, dim=-1,
+                                                     keepdim=True), x)
+
+
+def _mean_sq_xla(x):
+    return (_sum_last(x, x) * float(np.float32(1.0 / x.shape[-1])))[..., None]
 
 
 def sum_product(x, y, dim: int):
     """``jnp.sum(x * y, axis=dim)`` (the product broadcast, fused into the
     reduction): on CPU tensors in XLA's order (:func:`_sum_last`), on the
     card PyTorch's."""
-    x, y = torch.broadcast_tensors(x, y)
     if not _on_cpu(x):
         return (x * y).sum(dim)
+    return _exact(_sum_product_xla, lambda a, b, d: (a * b).sum(d), x, y,
+                  dim)
+
+
+def _sum_product_xla(x, y, dim: int):
+    x, y = torch.broadcast_tensors(x, y)
     return _sum_last(x.movedim(dim, -1), y.movedim(dim, -1))
 
 
@@ -285,6 +431,10 @@ def einsum(eq: str, a, b):
     sLSTM at their SMOKE width); on the card it is ``torch.einsum``."""
     if not _on_cpu(a):
         return torch.einsum(eq, a, b)
+    return _exact(_einsum_xla, torch.einsum, eq, a, b)
+
+
+def _einsum_xla(eq: str, a, b):
     ins, out = eq.split("->")
     sa, sb = ins.split(",")
     (c,) = [x for x in sa if x in sb and x not in out]
@@ -349,5 +499,8 @@ def cumsum(x, dim: int):
     zeros to blocks of 16, each block's prefix left to right, and each
     element plus the sum of the earlier blocks' totals (their inclusive
     prefix, in the same order, shifted by one)."""
-    x = x.movedim(dim, -1)
-    return _blocked_prefix(x).movedim(-1, dim)
+    return _exact(_cumsum_xla, torch.cumsum, x, dim)
+
+
+def _cumsum_xla(x, dim: int):
+    return _blocked_prefix(x.movedim(dim, -1)).movedim(-1, dim)

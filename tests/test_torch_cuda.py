@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 megastep, flash attention, flash-decode, the RG-LRU scan and the mLSTM,
 the LM serving paths (attention-only, hybrid, xLSTM, MoE, patch prefix
-and encoder-decoder), the fleet server's durable and chaos paths, and
-lane sharding on the cards there are.
+and encoder-decoder), the fleet server's durable and chaos paths, lane
+sharding on the cards there are, and training (the train step on the
+card against the CPU's, the remat policies, the kernels' refusal of
+inputs that require grad).
 
 These tests need a CUDA card and skip without one (a skip is not a pass).
 They import no JAX, so they run on the machine with the card:
@@ -1044,3 +1046,92 @@ def test_shard_on_one_card_is_the_unsharded_run(census_every_tenth, card):
                              shard=True)
     _assert_equal(want, got, "shard=True")
     assert sharding.fleet_mesh().size == torch.cuda.device_count()
+
+
+# -- training: the plain route under autograd on the card -----------------------
+
+TRAIN_RUN = dict(attn_chunk=8, mlstm_chunk=8, z_loss=1e-4, loss_chunk=8)
+TRAIN_RTOL = 2e-2   # bf16 bound, tests/test_kernels.py:26-27
+
+
+def _train_inputs(arch, device):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.interop import params_from_numpy
+    cfg = get_smoke(arch)
+    params = params_from_numpy(SMOKE.numpy_params(arch, 0), device=device)
+    batch = TokenStream(cfg, ShapeConfig("t", 32, 4, "train")).batch_at(0)
+    return cfg, params, {k: torch.from_numpy(v).to(device)
+                         for k, v in batch.items()}
+
+
+def test_model_kernels_raise_under_grad(card):
+    """Each kernel's wrapper refuses inputs that require grad (no kernel
+    has a backward) and launches nothing."""
+    assert SMOKE.refuse_grad_check(card) == list(SMOKE.MODEL_KERNELS)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-2b",
+                                  "xlstm-350m", "qwen2-moe-a2.7b",
+                                  "seamless-m4t-medium"])
+def test_train_step_on_card_near_cpu(card, arch):
+    """The train step's loss and every leaf's gradient on the card within
+    2e-2 of the same step on the CPU (same numpy-seeded weights and
+    batch); no model kernel launched on the card; a whole step runs.
+
+    A leaf is held to 2e-2 of its own gradient's norm, but the xLSTM
+    cells' input-gate biases (``mlstm/bi``, ``slstm/bi``): the cells'
+    normalisers absorb a shift of log i wherever they exceed 1, so those
+    gradients are residuals of cancelling terms (their relative change
+    under a 1e-3 perturbation of the weights is 2-3x the other leaves'),
+    and each is held to 2e-2 of its block's gradient norm."""
+    from repro_torch.optim.adamw import init_opt_state, tree_leaves
+    from repro_torch.train.step import grads_and_metrics, make_train_step
+    run = RunConfig(**TRAIN_RUN, remat_policy="nothing")
+    cfg, pc, bc = _train_inputs(arch, "cpu")
+    _, pg, bg = _train_inputs(arch, card)
+    gc_, mc = grads_and_metrics(cfg, run, pc, bc)
+    SMOKE.reset_kernel_launches()
+    gg, mg = grads_and_metrics(cfg, run, pg, bg)
+    assert not any(SMOKE.kernel_launches().values())
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]),
+                                              rel=TRAIN_RTOL)
+    total = float(torch.sqrt(sum((w * w).sum() for w in tree_leaves(gc_))))
+
+    def check(want, got, block):
+        for k, w in want.items():
+            if isinstance(w, dict):
+                check(w, got[k], w)
+                continue
+            g, norm = got[k].cpu(), float(w.norm())
+            if norm <= 1e-6 * total:
+                assert float(g.norm()) <= 1e-6 * total, k
+                continue
+            if k == "bi" and ("w_up" in block or "rz" in block):
+                norm = float(torch.sqrt(sum((x * x).sum()
+                                            for x in tree_leaves(block))))
+            assert float((g - w).norm()) <= TRAIN_RTOL * norm, k
+
+    check(gc_, gg, gc_)
+    state = {"params": pg, "opt": init_opt_state(pg)}
+    state, m = make_train_step(cfg, run)(state, bg)
+    assert float(m["loss"]) == float(mg["loss"])
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(pg))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-2b"])
+def test_remat_policies_equal_on_card(card, arch):
+    """The remat policies change memory, never a bit, on the card too."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import grads_and_metrics
+    cfg, params, batch = _train_inputs(arch, card)
+    out = {}
+    for policy in ("none", "nothing", "dots", "full"):
+        g, m = grads_and_metrics(cfg, RunConfig(**TRAIN_RUN,
+                                                remat_policy=policy),
+                                 params, batch)
+        out[policy] = (float(m["loss"]), tree_leaves(g))
+    for policy, (loss, grads) in out.items():
+        assert loss == out["none"][0], policy
+        assert all(torch.equal(a, b) for a, b in zip(grads, out["none"][1])), \
+            policy
