@@ -72,6 +72,12 @@ every kernel launch counted from 0 just before and read just after:
   AdamW moments on the card, batch 4 x 512) — the models' plain forms
   under autograd: no kernel has a backward, so the four model kernels
   must launch 0 times there, and each refuses inputs that require grad.
+* Collective hooks: ``repro_torch.train.step.make_ddp_train_step`` (the
+  explicit gradient all-reduce, one site a leaf) over the same full-width
+  qwen3-1.7b on a one-rank NCCL world (``repro_torch.launch.mesh``),
+  unhooked and under ``repro_torch.hooks``' handlers (the
+  ``torch.distributed`` interceptor, a dispatch mode), with its site
+  census and the completeness check against the backend's own record.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -232,7 +238,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     logits on the same batch (28 flash launches there), three steps with
     no model kernel launched, each kernel wrapper raising on inputs that
     require grad; step ms, tokens/s and peak GiB;
-26. the kernel table line (the megastep's launches on every path, the
+26. ``collective_hooks``: qwen3-1.7b at full width and depth, the
+    ``train_full`` run and batch, on a one-rank NCCL world; each arm from
+    the same seeded state, two steps, freed before the next: the census
+    of ``make_ddp_train_step`` (sites, primitives, payload bytes) equal to
+    the JAX package's census of its own (``HOOK_CENSUS``); the DDP step
+    unhooked, under a ``TraceHandler`` and under ``RSAGHandler(1)`` equal
+    to ``make_train_step`` bit for bit (every parameter and moment; a
+    second ``make_train_step`` run shows the step reproduces itself), the
+    trace's count and bytes each step the census's, RSAG rewriting every
+    non-scalar site; ``CastCompressHandler`` compressing every f32
+    gradient leaf of 64 KiB or more, its loss after step 2 and its
+    ``grad_norm`` at each step within 2e-2 relative of the unhooked
+    step's, and after step 1 each leaf's gradient (``m / ((1 - b1) c)``,
+    c the clip factor) within relative L2 2e-2 of the unhooked step's;
+    one profiled hooked step whose backend
+    all-reduces equal the census's executions (``fully_hooked``); step ms
+    of every arm; then 5 steps each, unhooked and traced, in turns from
+    one state: the hook's µs an intercepted call and an operator
+    dispatched through it, from the medians;
+27. the kernel table line (the megastep's launches on every path, the
     attention kernels at every family's shapes), the card line, then the
     device line (last).
 
@@ -275,6 +300,9 @@ from repro_torch.configs import (  # noqa: E402
     RunConfig, ShapeConfig, get_config, get_smoke)
 from repro_torch.data.pipeline import TokenStream  # noqa: E402
 from repro_torch.emul import state as emul_state  # noqa: E402
+from repro_torch.hooks import (  # noqa: E402
+    CastCompressHandler, RSAGHandler, TraceHandler,
+    backend_collective_census, census_fn, completeness_report, hooking)
 from repro_torch.kernels import nvcc  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as dkernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
@@ -291,6 +319,7 @@ from repro_torch.kernels.rglru_scan import kernel as rkernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
     rglru_scan_ref, rglru_scan_seq)
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
@@ -307,7 +336,8 @@ from repro_torch.trace import recorder  # noqa: E402
 from repro_torch.trace.stream import TraceStream  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
-    grads_and_metrics, init_train_state, make_train_step)
+    grads_and_metrics, init_train_state, make_ddp_train_step,
+    make_train_step)
 
 # -- the census deployment (a copy of benchmarks/collective_hook_overhead.py)
 FUEL = 10_000_000
@@ -3551,6 +3581,231 @@ def train_full_phase(dev, card) -> dict:
             "peak_gib": peak, "seconds": time.perf_counter() - t0}
 
 
+# -- collective hooks (the JAX package's hooks/ and make_ddp_train_step) ------
+# The train_full model, run and batch through the explicit-all-reduce DDP
+# step on a one-rank NCCL world.  HOOK_CENSUS: the JAX package's census_fn of
+# its make_ddp_train_step for the same config and batch, traced on a (1, 1)
+# test mesh (scripts/torch_port_pins.py --only hooks)
+HOOK_STEPS = 2
+HOOK_CENSUS = {"total_sites": 17, "by_primitive": {"psum": 17},
+               "payload_bytes_static": 6_883_348_496,
+               "payload_bytes_per_step": 6_883_348_496}
+HOOK_WIRE_TOL = 2e-2              # relative, the compressed run against the
+                                  # unhooked: loss, grad_norm, each leaf's
+                                  # gradient (L2); the bf16 bound
+HOOK_MIN_BYTES = 1 << 16          # CastCompressHandler's default
+HOOK_TURNS = 5                    # timed steps each, unhooked and traced
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def states_equal(a, b) -> list:
+    """The leaves (by index) where two train states differ."""
+    return [i for i, (x, y) in enumerate(zip(lm.tree_leaves(a),
+                                             lm.tree_leaves(b)))
+            if not torch.equal(x, y)]
+
+
+def collective_hooks_phase(dev, card) -> dict:
+    """make_ddp_train_step at FULL_TRAIN_ARCH's full width on a one-rank
+    world (NCCL on the card, raising if it does not come up), against
+    make_train_step and under each shipped handler; see the module
+    docstring (phase 26)."""
+    t0 = time.perf_counter()
+    arch = FULL_TRAIN_ARCH
+    world = mesh_lib.init_world(dev)
+    if torch.device(dev).type == "cuda" and world.backend != "nccl":
+        raise AssertionError(f"the card's world runs {world.backend}")
+    mesh = mesh_lib.make_test_mesh(1, 1)
+    cfg = get_config(arch)
+    run = RunConfig(**FULL_TRAIN_RUN)
+    seq, gb = FULL_TRAIN_SHAPE
+    stream = TokenStream(cfg, ShapeConfig("collective_hooks", seq, gb,
+                                          "train"), seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(i).items()}
+               for i in range(HOOK_STEPS)]
+    ddp = make_ddp_train_step(cfg, run, mesh)
+    plain = make_train_step(cfg, run)
+    line = {"phase": "collective_hooks", "card": card, "arch": arch,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "seq_len": seq, "global_batch": gb, "steps": HOOK_STEPS,
+            "backend": world.backend, "world_size": world.size}
+
+    def fresh():
+        return init_train_state(cfg, run, torch.Generator(dev).manual_seed(0))
+
+    def arm(step_fn, handlers=None, after_first=None):
+        """HOOK_STEPS steps from a fresh state: (state, losses, step ms,
+        operators the hook saw a step, grad_norm a step);
+        ``after_first(state, grad_norm)`` sees the state after step 1."""
+        state, losses, ms, seen, norms = fresh(), [], [], [], []
+        for b in batches:
+            _sync(dev)
+            t1 = time.perf_counter()
+            if handlers is None:
+                state, m = step_fn(state, b)
+            else:
+                with hooking(handlers) as mode:
+                    state, m = step_fn(state, b)
+                seen.append(mode.dispatched)
+            losses.append(float(m["loss"]))
+            _sync(dev)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            norms.append(float(m["grad_norm"]))
+            if after_first is not None and len(norms) == 1:
+                after_first(state, norms[0])
+        return state, losses, ms, seen, norms
+
+    def wire(state, grad_norm):
+        """After one step from zero moments m = (1 - b1) c g, with c =
+        min(1, clip / grad_norm): the gradient each leaf's all-reduce
+        carried, on the host."""
+        c = min(1.0, run.grad_clip / grad_norm) if grad_norm else 1.0
+        return [(x / ((1 - run.b1) * c)).cpu()
+                for x in lm.tree_leaves(state["opt"]["m"])]
+
+    # (c) the census of the full-width step, on clones of a fresh state
+    state = fresh()
+    census = census_fn(ddp, state, batches[0])
+    del state
+    got = {k: census[k] for k in HOOK_CENSUS}
+    if got != HOOK_CENSUS:
+        raise AssertionError(f"census {got} != the JAX package's "
+                             f"{HOOK_CENSUS}")
+    sites = census["total_sites"]
+    non_scalar = sum(1 for s in census["sites"] if s.in_shapes[0])
+    line["census"] = {**got, "non_scalar_sites": non_scalar}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # make_train_step twice (the step reproduces itself), then (a) the DDP
+    # step unhooked, (b) under TraceHandler, (e) under RSAGHandler(1): each
+    # equal to it bit for bit
+    ref_wire = []
+    ref, ref_losses, ms_plain, _, ref_norms = arm(
+        plain, after_first=lambda st, gn: ref_wire.extend(wire(st, gn)))
+    again = arm(plain)[0]
+    bad = states_equal(ref, again)
+    del again
+    if bad:
+        raise AssertionError(f"make_train_step twice: leaves {bad} differ")
+    ms = {"train_step": ms_plain}
+    out = {}
+    th, rh = TraceHandler(), RSAGHandler(axis_size=world.size)
+    for name, handlers in (("ddp", None), ("trace", {"psum": th}),
+                           ("rsag", {"psum": rh})):
+        state, losses, ms[name], seen, _ = arm(ddp, handlers)
+        bad = states_equal(ref, state)
+        del state
+        if bad or losses != ref_losses:
+            raise AssertionError(f"{name}: leaves {bad} differ from "
+                                 f"make_train_step; losses {losses} vs "
+                                 f"{ref_losses}")
+        out[name] = {"equal_to_train_step": True}
+        if seen:
+            out[name]["dispatched_per_step"] = seen
+    del ref
+    gc.collect()
+    if th.count != HOOK_STEPS * sites or (
+            th.total_bytes != HOOK_STEPS * census["payload_bytes_per_step"]):
+        raise AssertionError(f"trace: {th.count} calls, {th.total_bytes} "
+                             f"bytes; the census: {sites} sites, "
+                             f"{census['payload_bytes_per_step']} bytes a "
+                             "step")
+    if rh.rewritten != HOOK_STEPS * non_scalar:
+        raise AssertionError(f"rsag rewrote {rh.rewritten}, not "
+                             f"{HOOK_STEPS} x {non_scalar}")
+    out["trace"].update(count=th.count, total_bytes=th.total_bytes)
+    out["rsag"]["rewritten"] = rh.rewritten
+
+    # (d) CastCompressHandler: every f32 gradient leaf of 64 KiB or more
+    #     and the values its wire carried: after step 1, each leaf's
+    #     gradient (from m) within relative L2 HOOK_WIRE_TOL of the unhooked
+    #     step's, and grad_norm at each step within it too
+    ch = CastCompressHandler(min_bytes=HOOK_MIN_BYTES)
+    wire_err = []
+
+    def held(st, gn):
+        for got, want in zip(wire(st, gn), ref_wire):
+            n = float(torch.linalg.vector_norm(want))
+            d = float(torch.linalg.vector_norm(got - want))
+            wire_err.append(d / n if n else d)
+
+    state, losses, ms["compress"], _, norms = arm(ddp, {"psum": ch},
+                                                  after_first=held)
+    big = sum(1 for p in lm.tree_leaves(state["params"])
+              if p.dtype == torch.float32 and p.numel() * 4 >= HOOK_MIN_BYTES)
+    rel = abs(losses[-1] - ref_losses[-1]) / abs(ref_losses[-1])
+    norm_rel = [abs(a - b) / b for a, b in zip(norms, ref_norms)]
+    if ch.compressed_sites != HOOK_STEPS * big or len(wire_err) != len(
+            ref_wire) or not all(e <= HOOK_WIRE_TOL
+                                 for e in [rel, *wire_err, *norm_rel]):
+        raise AssertionError(f"compress: {ch.compressed_sites} sites (want "
+                             f"{HOOK_STEPS} x {big}); loss {losses} vs "
+                             f"{ref_losses} (relative {rel}); gradients "
+                             "relative L2 up to "
+                             f"{max(wire_err, default=None)}; grad_norm "
+                             f"{norms} vs {ref_norms}")
+    out["compress"] = {"compressed_sites": ch.compressed_sites,
+                       "big_f32_leaves": big, "losses": losses,
+                       "rel_vs_unhooked": rel,
+                       "grad_rel_l2_max": max(wire_err),
+                       "grad_rel_l2_leaves": len(wire_err),
+                       "grad_norm_rel": norm_rel}
+    ref_wire.clear()
+
+    # (f) the completeness report over one profiled, hooked step
+    th_f = TraceHandler()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with hooking({"psum": th_f}):
+            state, _ = ddp(state, batches[0])
+        _sync(dev)
+    # the hook's cost: steps from this state in turns, unhooked and traced
+    turns = {"ddp": [], "trace": []}
+    for name in ("ddp", "trace", "trace", "ddp") * (HOOK_TURNS // 2) + (
+            ("ddp", "trace") if HOOK_TURNS % 2 else ()):
+        _sync(dev)
+        t1 = time.perf_counter()
+        if name == "ddp":
+            state, _ = ddp(state, batches[0])
+        else:
+            with hooking({"psum": TraceHandler()}):
+                state, _ = ddp(state, batches[0])
+        _sync(dev)
+        turns[name].append((time.perf_counter() - t1) * 1e3)
+    del state
+    names = collections.Counter(
+        e.name for e in prof.events()
+        if ":" in e.name and e.name.split(":")[0] in ("nccl", "gloo"))
+    backend = backend_collective_census(prof)
+    rep = completeness_report(census, backend)
+    if not rep.fully_hooked or backend.get("all-reduce") != sites \
+            or th_f.count != sites:
+        raise AssertionError(f"completeness: {rep} ({dict(names)}); the "
+                             f"hook saw {th_f.count}")
+    out["completeness"] = {"fully_hooked": rep.fully_hooked,
+                           "backend_counts": backend,
+                           "census_counts": rep.census_counts,
+                           "backend_events": dict(names)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_lib.destroy_world()
+
+    median = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    extra_ms = median["trace"] - median["ddp"]
+    ops = out["trace"]["dispatched_per_step"][-1]
+    return {**line, "losses": ref_losses, **out, "step_ms": ms,
+            "turns_ms": turns, "turns_median_ms": median,
+            "hook_us_per_intercepted_call": extra_ms * 1e3 / sites,
+            "hook_us_per_dispatched_op": extra_ms * 1e3 / ops,
+            "seconds": time.perf_counter() - t0}
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
     lanes leave a ragged last block at 3): the kernel equals the plain
@@ -4017,7 +4272,13 @@ def main(argv=None) -> int:
     emit({**train_full_phase(dev, card),
           "script_s": time.perf_counter() - t_script})
 
-    # 26. the kernel table, the card, and the device line (last)
+    # 26. collective hooks: the DDP step at full width on a one-rank NCCL
+    #     world, unhooked and under each handler, its census and the
+    #     completeness check
+    emit({**collective_hooks_phase(dev, card),
+          "script_s": time.perf_counter() - t_script})
+
+    # 27. the kernel table, the card, and the device line (last)
     attn_src = {
         "flash": ("flash_attention",
                   "src/repro_torch/kernels/flash_attention/csrc/"

@@ -59,6 +59,14 @@ the auto-resume (checked equal to the straight run's losses); the
 straight run's per-step losses are the pins (``TRAIN_PINS``), which
 chip_smoke.py's ``train_pins`` phase holds the port's losses on the card
 to within 2e-2 relative.  Under a minute on a CPU.
+
+The hooks half (``--only hooks``) takes the JAX package's
+``repro.hooks.census_fn`` of its ``make_ddp_train_step`` for chip_smoke.py's
+``FULL_TRAIN_ARCH`` at full width, its ``FULL_TRAIN_RUN`` and one batch of
+``FULL_TRAIN_SHAPE``, on a (1, 1) test mesh: sites, primitives and payload
+bytes (``HOOK_CENSUS``, which the ``collective_hooks`` phase holds the
+port's census of its own DDP step to on the card).  The state is
+``jax.eval_shape``'s and the census only traces, so it takes seconds.
 """
 from __future__ import annotations
 
@@ -328,12 +336,32 @@ def train_pins(smoke) -> dict:
     return {"train": out}
 
 
+def hooks_pins(smoke) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.hooks import census_fn
+    from repro.launch.mesh import make_test_mesh
+    from repro.train.step import init_train_state, make_ddp_train_step
+
+    cfg = get_config(smoke.FULL_TRAIN_ARCH)
+    run = RunConfig(**smoke.FULL_TRAIN_RUN)
+    seq, gb = smoke.FULL_TRAIN_SHAPE
+    state = jax.eval_shape(lambda k: init_train_state(cfg, run, k),
+                           jax.random.PRNGKey(0))
+    batch = {"tokens": jax.ShapeDtypeStruct((gb, seq), jnp.int32)}
+    c = census_fn(make_ddp_train_step(cfg, run, make_test_mesh(1, 1)),
+                  state, batch)
+    return {"hooks": {k: c[k] for k in smoke.HOOK_CENSUS}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="exit 1 unless chip_smoke.py's pins match")
     ap.add_argument("--only", choices=("census", "server", "durable",
-                                       "train"),
+                                       "train", "hooks"),
                     default=None, help="recompute one part only")
     args = ap.parse_args(argv)
     smoke = _chip_smoke()
@@ -357,6 +385,9 @@ def main(argv=None) -> int:
     if args.only in (None, "train"):
         got.update(train_pins(smoke))
         want.update({"train": smoke.TRAIN_PINS})
+    if args.only in (None, "hooks"):
+        got.update(hooks_pins(smoke))
+        want.update({"hooks": smoke.HOOK_CENSUS})
     if args.only in (None, "server"):
         got.update(server_pins(smoke))
         want.update({"served": smoke.FS_SERVED_EXPECTED,

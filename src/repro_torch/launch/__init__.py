@@ -1,1 +1,2 @@
-"""Command-line entry points of the PyTorch port (``train``)."""
+"""Launch: process groups and meshes (``mesh``) and the command-line
+training entry point (``train``) of the PyTorch port."""

@@ -1,1 +1,2 @@
-"""Lane sharding of a fleet across devices (:mod:`.sharding`)."""
+"""Sharding rules (:mod:`.sharding`): parameter and cache specs, and
+lane sharding of a fleet across devices."""

@@ -1,8 +1,22 @@
-"""Fleet lane partitioning across devices: the fleet half of the JAX
-package's ``parallel/sharding.py`` (``LANE_AXIS``, ``fleet_mesh``,
-``lane_sharding``, ``fleet_divisor``, ``shard_fleet``).
+"""Sharding rules: the JAX package's ``parallel/sharding.py``, both halves.
 
-A mesh here is the list of devices a fleet may split its lanes over
+*The model half* — logical-axis rules: FSDP over ``data`` (+``pod``), TP
+over ``model``.  Parameters are sharded 2-D (ZeRO-3 style over the data
+axes *and* tensor-parallel over ``model``); ``set_sharding_mode("zero3")``
+folds the model axis into FSDP.  Head-layout fallback: shard the *heads*
+axis over ``model`` when divisible, else the *head_dim* axis, else
+replicate.  A spec is :class:`P`, a tuple of axis entries (``None``, an
+axis name or a tuple of names), as a JAX ``PartitionSpec`` is; the mesh
+the rules read is the one ``launch.mesh.mesh_context`` makes current.
+``constrain`` returns its tensor as it is: the port's collective programs
+are written per rank, so a tensor already is its rank's shard (the JAX
+package's ``constrain`` drops a shard_map body's Manual axes too, and is
+a no-op outside a mesh and on axes of size 1).  The placements that turn
+these specs into sharded tensors are built by the launcher, not here.
+
+*The fleet half* — lane partitioning across devices (``LANE_AXIS``,
+``fleet_mesh``, ``lane_sharding``, ``fleet_divisor``, ``shard_fleet``).
+A fleet mesh is the list of devices a fleet may split its lanes over
 (:func:`fleet_devices`: every visible CUDA device, or the one device a
 caller asked for).  :func:`shard_fleet` cuts the lanes of a carry (and of
 a trace carry) into equal slices, one copy a device, and copies the decode
@@ -13,17 +27,214 @@ lockstep — one chunk on every slice, each on its own device through the
 megastep wrapper, then one liveness test over all lanes — so a run takes
 the chunks the unsharded run takes and every leaf is the same; then
 :func:`gather_lanes` writes the slices back into the caller's carry.
-
-The JAX package's model half (parameter and cache specs, the 2d and
-zero3 modes) is not here: the port's model runs on one device.
 """
 from __future__ import annotations
 
+import re
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.machine import resolve_device
+
+DATA_AXES: Tuple[str, ...] = ("pod", "data")  # combined FSDP/batch axes
+TP_AXIS = "model"
+
+# Sharding mode: "2d" = FSDP over data x TP over model (default); "zero3" =
+# fold the model axis into FSDP too — no tensor parallelism, params and
+# optimizer state sharded over every axis.
+_MODE = {"mode": "2d"}
+_MESHES: list = []  # the meshes of launch.mesh.mesh_context, innermost last
+
+
+class P(tuple):
+    """A partition spec: one entry a tensor dimension — ``None``, a mesh
+    axis name or a tuple of axis names."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def set_sharding_mode(mode: str) -> None:
+    assert mode in ("2d", "zero3"), mode
+    _MODE["mode"] = mode
+
+
+def sharding_mode() -> str:
+    return _MODE["mode"]
+
+
+def data_axes() -> Tuple[str, ...]:
+    if _MODE["mode"] == "zero3":
+        return ("pod", "data", "model")
+    return DATA_AXES
+
+
+def tp_axis():
+    return None if _MODE["mode"] == "zero3" else TP_AXIS
+
+
+def abstract_mesh():
+    """The current mesh (``launch.mesh.mesh_context``), or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+def mesh_axis_size(name: str) -> int:
+    m = abstract_mesh()
+    if m is None:
+        return 1
+    return dict(zip(m.mesh_dim_names, m.mesh.shape)).get(name, 1)
+
+
+def data_axes_in_mesh() -> Tuple[str, ...]:
+    m = abstract_mesh()
+    if m is None:
+        return ()
+    return tuple(a for a in DATA_AXES if a in m.mesh_dim_names)
+
+
+def constrain(x, *spec_entries):
+    """with_sharding_constraint's place: ``x`` itself (see the module
+    docstring: every tensor of a per-rank program is its rank's shard)."""
+    return x
+
+
+def batch_spec(extra_dims: int = 1) -> P:
+    return P(data_axes(), *([None] * extra_dims))
+
+
+def head_axes(n_heads: int, head_dim: int) -> Tuple[Optional[str],
+                                                     Optional[str]]:
+    """(heads_axis, hd_axis) for activation tensors (B, S, H, hd)."""
+    if tp_axis() is None:
+        return None, None
+    tp = mesh_axis_size(TP_AXIS)
+    if tp == 1:
+        return None, None
+    if n_heads % tp == 0:
+        return TP_AXIS, None
+    if head_dim % tp == 0:
+        return None, TP_AXIS
+    return None, None
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs (by tree path)
+# ---------------------------------------------------------------------------
+
+_FSDP = DATA_AXES  # shard the "d_model-like" dim over the combined data axes
+
+# leaf-name -> spec for the *unstacked* rank (tiles add a leading None)
+_RULES = {
+    # (in_dim, out_dim): FSDP on in, TP on out
+    r"(wq|wk|wv|w1|w3|w_x|w_gate|w_up|wq_x|router)$": P(_FSDP, TP_AXIS),
+    r"(w_r|w_i)$": P(_FSDP, TP_AXIS),
+    # (out_dim, d): TP on in, FSDP on out
+    r"(wo|w2|w_down)$": P(TP_AXIS, _FSDP),
+    # embeddings
+    r"tok$": P(TP_AXIS, _FSDP),
+    r"lm_head$": P(_FSDP, TP_AXIS),
+    r"frontend_proj$": P(_FSDP, TP_AXIS),
+    # biases on TP-sharded outputs
+    r"(bq|bk|bv)$": P(TP_AXIS),
+    # conv taps (W, dr)
+    r"conv$": P(None, TP_AXIS),
+    # small per-head / per-channel params: replicate
+    r"(ln1|ln2|ln_x|norm|final_norm|enc_norm|q_norm|k_norm|lam|b_r|b_i|bf|bi)$": P(),
+    r"(wi|wf)$": P(_FSDP, None),        # gate projections (d, n_heads)
+    r"(rz|ri|rf|ro)$": P(),             # sLSTM block-diagonal recurrences
+}
+
+_MOE_RULES = {
+    r"w1$": P(None, _FSDP, TP_AXIS),
+    r"w3$": P(None, _FSDP, TP_AXIS),
+    r"w2$": P(None, TP_AXIS, _FSDP),
+    r"router$": P(_FSDP, None),
+}
+
+
+def _spec_for(path: str, ndim: int) -> P:
+    # routed-expert weights are 3-D (E, in, out); the shared-expert MLP under
+    # moe/shared/ is a plain dense block and takes the dense rules
+    is_routed = "/moe/" in path and "/shared/" not in path
+    rules = _MOE_RULES if is_routed else _RULES
+    stacked = path.startswith("tiles/") or path.startswith("enc_tiles/")
+    for pat, spec in rules.items():
+        if re.search(pat, path):
+            entries = list(spec)
+            if stacked:
+                entries = [None] + entries
+            # pad/truncate to rank
+            while len(entries) < ndim:
+                entries.append(None)
+            return P(*entries[:ndim])
+    # default: replicate
+    return P(*([None] * ndim))
+
+
+def _apply_mode(spec: P) -> P:
+    """Rewrite a rule spec for the active sharding mode."""
+    if _MODE["mode"] == "2d":
+        return spec
+    out = []
+    for e in spec:
+        if e == TP_AXIS:
+            out.append(None)           # no tensor parallelism in zero3
+        elif isinstance(e, (tuple, list)) and tuple(e) == tuple(DATA_AXES):
+            out.append(data_axes())    # FSDP over every axis
+        else:
+            out.append(e)
+    return P(*out)
+
+
+def param_specs(params):
+    """Mirror the parameter tree with :class:`P` specs (shapes only: fake
+    or meta tensors will do)."""
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        return _apply_mode(_spec_for(prefix, tree.dim()))
+
+    return walk(params, "")
+
+
+def cache_spec(cfg, cache):
+    """Decode-cache specs: batch over data axes; heads or head_dim over TP."""
+    h_ax, hd_ax = head_axes(cfg.n_kv_heads, cfg.hd)
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        nd = tree.dim()
+        lead = [None] if prefix.startswith("tiles/") else []
+        body = nd - len(lead)
+        name = prefix.rsplit("/", 1)[-1]
+        if name in ("k", "v", "xk", "xv"):        # (B, S, Hkv, hd)
+            return P(*lead, data_axes(), None, h_ax, hd_ax)
+        if name == "slot_pos":                     # (W,)
+            return P(*lead, None)
+        if name == "C":                            # (B, H, dh, dh)
+            return P(*lead, data_axes(), None, None, None)
+        if name in ("n", "conv"):                  # (B, H, dh) / (B, W-1, dr)
+            return P(*lead, data_axes(), *([None] * (body - 1)))
+        if name in ("h", "c", "m"):                # (B, d)
+            return P(*lead, data_axes(), *([None] * (body - 1)))
+        if name == "pos":
+            return P()
+        return P(*([None] * nd))
+
+    return walk(cache, "")
+
+
+# ---------------------------------------------------------------------------
+# Fleet lane partitioning (ASC-Hook fleet engine)
+# ---------------------------------------------------------------------------
 
 LANE_AXIS = "lanes"
 

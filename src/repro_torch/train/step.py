@@ -12,11 +12,18 @@ in the JAX package either, so ``attn_impl="pallas"`` raises.  The state
 (parameters, moments, step count, EF residuals) is updated in place and
 returned — the in-place update stands for JAX's donated state.
 
-``make_ddp_train_step`` (the explicit gradient all-reduce) is not
-ported: it comes with the ``torch.distributed`` collectives of the hooks.
+``make_ddp_train_step`` is the JAX package's shard_map step, written per
+rank: each rank's gradient of its shard of the batch, then an *explicit*
+all-reduce (``torch.distributed``) of every gradient leaf and every
+metric over the mesh's ``data`` group, divided by the group's size.
+Functionally the same as ``make_train_step`` on the whole batch; it
+exists so the collective boundary is visible to the hooks
+(:mod:`repro_torch.hooks`: tracing, compression, schedule rewrite), one
+site a leaf as JAX's ``tree_map(psum)`` gives.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict
 
 import torch
@@ -26,6 +33,7 @@ from ..models import lm
 from ..optim import compress as compress_lib
 from ..optim.adamw import (adamw_update, init_opt_state, tree_leaves,
                            tree_map)
+from ..parallel.collectives import mean_over
 
 METRICS = ("ce", "z_loss", "aux", "loss")
 
@@ -100,6 +108,49 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
                 grads, state["ef"], codec)
         params, opt, opt_metrics = adamw_update(params, grads, state["opt"],
                                                 run)
+        new_state.update(params=params, opt=opt)
+        return new_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_ddp_train_step(cfg: ModelConfig, run: RunConfig, mesh,
+                        data_axis: str = "data") -> Callable:
+    """Per-rank data-parallel step with an explicit (hookable) gradient
+    all-reduce.  ``train_step(state, batch)`` takes the global batch, as
+    the JAX package's shard_map does, and runs this rank's rows of it
+    (its place along ``mesh``'s ``data_axis``); parameters and optimizer
+    state are replicated and updated in place."""
+    if run.attn_impl != "xla":
+        raise ValueError(f"attn_impl={run.attn_impl!r}: no kernel has a "
+                         "backward; the train step runs the XLA route")
+    group = mesh.get_group(data_axis)
+    n_data = mesh.size(mesh.mesh_dim_names.index(data_axis))
+    rank = mesh.get_local_rank(data_axis)
+    # the JAX package's DDP loss takes the parameters as they are
+    local_run = dataclasses.replace(run, param_wire_bf16=False)
+
+    def shard(x):
+        b = x.shape[0]
+        if b % n_data:
+            raise ValueError(f"batch {b} is not a multiple of the {n_data} "
+                             f"ranks of {data_axis!r}")
+        w = b // n_data
+        return x[rank * w:(rank + 1) * w]
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        local = {k: shard(x) for k, x in batch.items()}
+        grads, metrics = grads_and_metrics(cfg, local_run, state["params"],
+                                           local)
+        grads = mean_over(grads, group, n_data, "grads")
+        metrics = mean_over(metrics, group, n_data, "metrics")
+        new_state = dict(state)
+        if "ef" in state:
+            codec = "int8" if run.grad_compression == "int8_ef" else "bf16"
+            grads, new_state["ef"] = compress_lib.compress_grads(
+                grads, state["ef"], codec)
+        params, opt, opt_metrics = adamw_update(state["params"], grads,
+                                                state["opt"], run)
         new_state.update(params=params, opt=opt)
         return new_state, {**metrics, **opt_metrics}
 
