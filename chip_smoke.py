@@ -257,7 +257,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     of every arm; then 5 steps each, unhooked and traced, in turns from
     one state: the hook's µs an intercepted call and an operator
     dispatched through it, from the medians;
-27. the kernel table line (the megastep's launches on every path, the
+27. ``dryrun``: first, here with no process group, the ``train_full``
+    cell's step on real tensors under ``opanalysis.analyze``, then three
+    steps timed alone (nothing else running on the host) with
+    ``max_memory_allocated``; then ``python -m repro_torch.launch.dryrun``
+    at full width on fake ``cuda`` tensors (no card memory), qwen3-1.7b
+    ``train_4k`` and recurrentgemma-2b ``long_500k``, each on 16x16 and
+    2x16x16 fake worlds in a process of its own: every cell ``OK`` with a
+    dominant term, dot FLOPs and bytes above zero, one line a cell with
+    ``fits_hbm`` and the roofline terms; meanwhile, here, the same step
+    under ``opanalysis.analyze`` on fake tensors: dot FLOPs equal to the
+    JAX package's one-device HLO count (``DRYRUN_DOT_FLOPS``) fake and
+    real, no collective, the predicted peak bytes beside
+    ``max_memory_allocated`` and the median step beside the roofline
+    bound (H100 datasheet figures);
+28. the kernel table line (the megastep's launches on every path, the
     attention kernels at every family's shapes), the card line, then the
     device line (last).
 
@@ -272,6 +286,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -319,6 +334,7 @@ from repro_torch.kernels.rglru_scan import kernel as rkernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
     rglru_scan_ref, rglru_scan_seq)
+from repro_torch.launch import dryrun, opanalysis  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -3806,6 +3822,179 @@ def collective_hooks_phase(dev, card) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- the multi-pod dry run (the JAX package's launch/dryrun.py) ---------------
+# (a) full-width cells traced on fake 256- and 512-rank worlds, one process a
+# cell (a fake world must not share a process with a real one); (b) the
+# train_full cell's operator count and roofline against a real step.
+# DRYRUN_DOT_FLOPS: the JAX package's one-device HLO dot count of that step
+# (scripts/torch_port_pins.py --only dryrun)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("recurrentgemma-2b", "long_500k"))
+DRYRUN_DOT_FLOPS = 27_384_753_422_336
+DRYRUN_STEPS = 3
+DRYRUN_TIMEOUT_S = 400
+
+
+def dryrun_cells(directory) -> list:
+    """Start one ``python -m repro_torch.launch.dryrun`` a cell of
+    DRYRUN_CELLS on both meshes, fake tensors on the card's device type;
+    returns (arch, shape, out, log, process) each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = Path(directory) / f"{arch}_{shape}.json"
+        log = open(Path(directory) / f"{arch}_{shape}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--both-meshes", "--device", "cuda",
+               "--out", str(out), "--label", "chip_smoke"]
+        procs.append((arch, shape, out, log, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def dryrun_cell_lines(procs, card) -> list:
+    """Wait for the cells of :func:`dryrun_cells` and check each: status
+    OK, a dominant term, dot FLOPs and bytes above zero."""
+    lines = []
+    for arch, shape, out, log, proc in procs:
+        try:
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        tail = Path(log.name).read_text()[-3000:]
+        if rc != 0 or not out.exists():
+            raise AssertionError(f"dry run {arch} {shape}: exit {rc}\n{tail}")
+        for c in json.loads(out.read_text()):
+            r = c.get("roofline", {})
+            if c["status"] != "OK" or r.get("dominant") not in (
+                    "compute", "memory", "collective") \
+                    or not c["hlo_dot_flops_per_device"] > 0 \
+                    or not c["bytes_per_device"] > 0:
+                raise AssertionError(f"dry run cell {c['arch']} "
+                                     f"{c['shape']} {c['mesh']}: "
+                                     f"{c.get('error')}\n{tail}")
+            lines.append({
+                "phase": "dryrun", "part": "cell", "card": card,
+                **{k: c[k] for k in (
+                    "arch", "shape", "mesh", "status", "trace_s",
+                    "bytes_per_device", "fits_hbm", "argument_bytes",
+                    "hlo_dot_flops_per_device", "hlo_mem_bytes_per_device",
+                    "collective_wire_bytes_per_device", "collectives",
+                    "wire_bytes_by_group_size", "model_flops_per_device",
+                    "useful_flops_ratio", "roofline_fraction")},
+                "roofline": r})
+    return lines
+
+
+def dryrun_measure(dev) -> dict:
+    """The train_full cell on the card (plain tensors, no process group):
+    one step under ``opanalysis.analyze`` (its counts), then DRYRUN_STEPS
+    steps timed alone, with ``max_memory_allocated``; the state freed
+    before and after."""
+    cfg = get_config(FULL_TRAIN_ARCH)
+    run = RunConfig(**FULL_TRAIN_RUN)
+    seq, gb = FULL_TRAIN_SHAPE
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, run, torch.Generator(dev).manual_seed(0))
+    stream = TokenStream(cfg, ShapeConfig("dryrun", seq, gb, "train"),
+                         seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(0).items()}
+    step = make_train_step(cfg, run)
+    real = opanalysis.analyze(step, state, batch)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(m["loss"])
+    del state, batch, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"real": real, "step_ms": step_ms, "peak": peak, "loss": loss}
+
+
+def dryrun_prediction(dev, card, measured) -> dict:
+    """The train_full cell's operator count on fake tensors against
+    :func:`dryrun_measure`'s step: the dot FLOPs pinned to the JAX
+    package's, no collective, the predicted peak bytes beside
+    ``max_memory_allocated`` and the step's time beside the roofline
+    bound."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = get_config(FULL_TRAIN_ARCH)
+    run = RunConfig(**FULL_TRAIN_RUN)
+    seq, gb = FULL_TRAIN_SHAPE
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        state = init_train_state(cfg, run, torch.Generator(dev))
+        batch = {"tokens": torch.empty((gb, seq), dtype=torch.int32,
+                                       device=dev)}
+        fake = opanalysis.analyze(make_train_step(cfg, run), state, batch)
+    fake_s = time.perf_counter() - t0
+    real, step_ms, peak, loss = (measured[k] for k in (
+        "real", "step_ms", "peak", "loss"))
+    if not (fake.dot_flops == real.dot_flops == DRYRUN_DOT_FLOPS):
+        raise AssertionError(f"dot FLOPs: fake {fake.dot_flops}, real "
+                             f"{real.dot_flops}, JAX {DRYRUN_DOT_FLOPS}")
+    if fake.collectives or real.collectives or not math.isfinite(loss):
+        raise AssertionError(f"collectives {fake.collectives} "
+                             f"{real.collectives}; loss {loss}")
+    terms = opanalysis.roofline_terms(fake)
+    median = sorted(step_ms)[len(step_ms) // 2]
+    model_fl = dryrun.model_flops_per_step(
+        cfg, ShapeConfig("dryrun", seq, gb, "train"))
+    return {"phase": "dryrun", "part": "prediction", "card": card,
+            "arch": FULL_TRAIN_ARCH, "seq_len": seq, "global_batch": gb,
+            "remat_policy": run.remat_policy, "loss_chunk": run.loss_chunk,
+            "dot_flops": fake.dot_flops, "dot_flops_real": real.dot_flops,
+            "dot_flops_jax": DRYRUN_DOT_FLOPS,
+            "mem_bytes": fake.mem_bytes, "mem_bytes_real": real.mem_bytes,
+            "predicted_peak_bytes": fake.peak_bytes,
+            "predicted_peak_bytes_real": real.peak_bytes,
+            "argument_bytes": fake.argument_bytes,
+            "max_memory_allocated": peak,
+            "peak_ratio": fake.peak_bytes / peak,
+            "roofline": terms.to_dict(), "bound_ms": terms.bound_s * 1e3,
+            "step_ms": step_ms, "step_ms_median": median,
+            "roofline_fraction_on_card": terms.bound_s * 1e3 / median,
+            "roofline_fraction_predicted":
+                (model_fl / opanalysis.HW.peak_flops) / terms.bound_s,
+            "model_flops_utilization":
+                model_fl / opanalysis.HW.peak_flops / (median / 1e3),
+            "loss": loss, "fake_trace_s": fake_s}
+
+
+def dryrun_phase(dev, card) -> list:
+    """(b)'s real step first, timed with nothing else running on the
+    host; then (a)'s full-width cells in processes of their own while
+    (b)'s fake trace runs here; one line each (see the module docstring,
+    phase 27)."""
+    t0 = time.perf_counter()
+    measured = dryrun_measure(dev)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as d:
+        procs = dryrun_cells(d)
+        try:
+            pred = dryrun_prediction(dev, card, measured)
+        except BaseException:
+            for *_, log, proc in procs:
+                proc.kill()
+                proc.wait()
+                log.close()
+            raise
+        cells = dryrun_cell_lines(procs, card)
+    return cells + [{**pred, "seconds": time.perf_counter() - t0}]
+
+
 def check_chunks(name, imgs, ids, start, tr, checks):
     """One chunk at 1, 8 and 128 steps and 3 and 4 lanes a block (500
     lanes leave a ragged last block at 3): the kernel equals the plain
@@ -4278,7 +4467,13 @@ def main(argv=None) -> int:
     emit({**collective_hooks_phase(dev, card),
           "script_s": time.perf_counter() - t_script})
 
-    # 27. the kernel table, the card, and the device line (last)
+    # 27. the multi-pod dry run: full-width cells on fake 256- and
+    #     512-rank worlds, and the train_full cell's prediction against
+    #     the card
+    for line in dryrun_phase(dev, card):
+        emit({**line, "script_s": time.perf_counter() - t_script})
+
+    # 28. the kernel table, the card, and the device line (last)
     attn_src = {
         "flash": ("flash_attention",
                   "src/repro_torch/kernels/flash_attention/csrc/"

@@ -67,6 +67,14 @@ The hooks half (``--only hooks``) takes the JAX package's
 bytes (``HOOK_CENSUS``, which the ``collective_hooks`` phase holds the
 port's census of its own DDP step to on the card).  The state is
 ``jax.eval_shape``'s and the census only traces, so it takes seconds.
+
+The dry-run half (``--only dryrun``) compiles the JAX package's
+``make_train_step`` for one CPU device at the ``train_full`` cell
+(``FULL_TRAIN_ARCH`` at full width, ``FULL_TRAIN_RUN``, one batch of
+``FULL_TRAIN_SHAPE``; abstract inputs, no weights) and reads its dot
+FLOPs with ``repro.launch.hloanalysis.analyze`` (``DRYRUN_DOT_FLOPS``,
+which the ``dryrun`` phase holds the port's operator count to, on fake
+and on real tensors).
 """
 from __future__ import annotations
 
@@ -356,12 +364,31 @@ def hooks_pins(smoke) -> dict:
     return {"hooks": {k: c[k] for k in smoke.HOOK_CENSUS}}
 
 
+def dryrun_pins(smoke) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.launch.hloanalysis import analyze
+    from repro.train.step import init_train_state, make_train_step
+
+    cfg = get_config(smoke.FULL_TRAIN_ARCH)
+    run = RunConfig(**smoke.FULL_TRAIN_RUN)
+    seq, gb = smoke.FULL_TRAIN_SHAPE
+    state = jax.eval_shape(lambda k: init_train_state(cfg, run, k),
+                           jax.random.PRNGKey(0))
+    batch = {"tokens": jax.ShapeDtypeStruct((gb, seq), jnp.int32)}
+    compiled = jax.jit(make_train_step(cfg, run)).lower(state,
+                                                        batch).compile()
+    return {"dryrun_dot_flops": analyze(compiled.as_text()).dot_flops}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="exit 1 unless chip_smoke.py's pins match")
     ap.add_argument("--only", choices=("census", "server", "durable",
-                                       "train", "hooks"),
+                                       "train", "hooks", "dryrun"),
                     default=None, help="recompute one part only")
     args = ap.parse_args(argv)
     smoke = _chip_smoke()
@@ -388,6 +415,9 @@ def main(argv=None) -> int:
     if args.only in (None, "hooks"):
         got.update(hooks_pins(smoke))
         want.update({"hooks": smoke.HOOK_CENSUS})
+    if args.only in (None, "dryrun"):
+        got.update(dryrun_pins(smoke))
+        want.update({"dryrun_dot_flops": smoke.DRYRUN_DOT_FLOPS})
     if args.only in (None, "server"):
         got.update(server_pins(smoke))
         want.update({"served": smoke.FS_SERVED_EXPECTED,

@@ -13,6 +13,10 @@ process group, which :func:`init_world` brings up: NCCL on the card
 in-process ``HashStore``.  A failed NCCL init raises; nothing falls back
 to gloo or to the CPU.
 
+The dry run (``launch.dryrun``) brings up a fake world of 256 or 512
+ranks instead (``torch.testing._internal.distributed.fake_pg``: no
+communication) and builds the production mesh on it.
+
 The JAX package's ``shard_map_fn`` has no counterpart: the port's
 collective programs (``train.step.make_ddp_train_step``) are written per
 rank, which is what a shard_map body is.
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -73,12 +77,15 @@ def destroy_world() -> None:
         dist.destroy_process_group()
 
 
-def make_mesh(shape: Sequence[int], axes: Sequence[str]):
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` with ``axes`` as its dimension names
-    over the world's ranks (brought up on the card if it is not yet)."""
+    over the world's ranks (brought up on the card if it is not yet), on
+    the world's device type unless ``device_type`` is given (the dry
+    run's fake world serves both)."""
     world = _world() if dist.is_initialized() else init_world()
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(world.device.type, tuple(shape),
+    return init_device_mesh(device_type or world.device.type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 
 
@@ -93,11 +100,12 @@ def mesh_context(mesh):
         sharding._MESHES.pop()
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
     """The production mesh; raises unless the world has 256 (512) ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
 def make_test_mesh(data: int = 1, model: int = 1):

@@ -25,8 +25,10 @@ scan and the mLSTM take their plain versions on CUDA tensors too, and
 :func:`checkpoint` (``torch.utils.checkpoint``, non-reentrant) recomputes
 under the route its first run saw.  The route is a context, not a mode:
 the encoder runs in mode ``"train"`` while serving and keeps its kernel.
-``chunk_remat`` checkpoints each query chunk of the plain attention.  The
-mesh sharding constraints are not ported: the port runs on one device.
+``chunk_remat`` checkpoints each query chunk of the plain attention.
+:func:`attn_qkv` and :func:`attn_out` hold the heads' layout points on a
+mesh's DTensors (``lm``'s docstring lists them all); on any other tensor
+they change nothing.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from .. import numerics
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel import sharding
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -127,9 +130,12 @@ def dot(x, w):
     package's einsums; PyTorch's own bf16 CPU GEMM sums in another order
     and differs in the last bit); on the card, cuBLAS's GEMM in the
     operands' dtype."""
-    if x.device.type == "cpu" and x.dtype != torch.float32:
+    if numerics.exact_forms(x) and x.dtype != torch.float32:
         return (x.float() @ w.float()).to(x.dtype)
-    return x @ w
+    # on a mesh's DTensors the product's gradient comes back in its
+    # output's layout (a product cannot take one sharded along the
+    # sequence and flattened with the batch)
+    return sharding.pin(x @ w)
 
 
 def rms_norm(x, w, eps: float = 1e-6):
@@ -157,7 +163,7 @@ def gelu(x):
     it, op by op in x's dtype with its constants rounded to that dtype
     (bit-equal to the JAX package); on the card PyTorch's fused tanh gelu,
     rounded once."""
-    if x.device.type != "cpu":
+    if not numerics.exact_forms(x):
         return F.gelu(x, approximate="tanh")
     c0 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
     c1 = torch.tensor(0.044715, dtype=x.dtype)
@@ -337,6 +343,20 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator, *, lead=(),
     return p
 
 
+def split_heads(t, n_heads: int, hd: int, layout_heads=None):
+    """(B, S, n_heads * hd) -> (B, S, n_heads, hd).  On a mesh's DTensor
+    (a no-op on any other tensor) the flat projection is first laid out
+    as :func:`sharding.head_axes` says for ``layout_heads`` heads
+    (default ``n_heads``), sharded over whole heads or not at all, and
+    the heads then take that layout: GSPMD pads a split of a sharded
+    width that does not divide, DTensor refuses it, so the port
+    constrains where the JAX model lets the partitioner choose."""
+    h_ax, hd_ax = sharding.head_axes(layout_heads or n_heads, hd)
+    t = sharding.constrain(t, sharding.data_axes(), None, h_ax)
+    t = t.reshape(*t.shape[:2], n_heads, hd)
+    return sharding.constrain(t, sharding.data_axes(), None, h_ax, hd_ax)
+
+
 def attn_qkv(cfg: ModelConfig, p: dict, x, positions=None):
     """Project + rope. x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd)."""
     B, S, _ = x.shape
@@ -348,9 +368,11 @@ def attn_qkv(cfg: ModelConfig, p: dict, x, positions=None):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, nq, hd)
-    k = k.reshape(B, S, nkv, hd)
-    v = v.reshape(B, S, nkv, hd)
+    # q takes K/V's layout, so that its heads split into (kv head, group)
+    # evenly in the attention
+    q = split_heads(q, nq, hd, layout_heads=nkv)
+    k = split_heads(k, nkv, hd)
+    v = split_heads(v, nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -361,8 +383,20 @@ def attn_qkv(cfg: ModelConfig, p: dict, x, positions=None):
 
 
 def attn_out(cfg: ModelConfig, p: dict, o):
-    B, S = o.shape[:2]
-    return dot(o.reshape(B, S, -1), p["wo"].to(o.dtype))
+    return dot(merge_heads(o), p["wo"].to(o.dtype))
+
+
+def merge_heads(o):
+    """(B, S, H, hd) -> (B, S, H * hd).  On a mesh's DTensor (a no-op on
+    any other tensor) the heads are merged whole, forward and backward: a
+    DTensor sharded on head_dim merges into a strided layout the next
+    product cannot take, and the gradient of the merged width cannot
+    split into heads that do not divide the axis."""
+    B, S, H, hd = o.shape
+    h_ax, _ = sharding.head_axes(H, hd)
+    o = sharding.constrain(o, sharding.data_axes(), None, h_ax, None)
+    return sharding.constrain(o.reshape(B, S, H * hd), sharding.data_axes(),
+                              None, h_ax)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,30 @@ head and xent chunked under ``run.loss_chunk``) runs the plain forms on
 every device (:func:`layers.xla_route`), and ``_run_stack`` in mode
 ``"train"`` checkpoints each tile as ``run.remat_policy`` says
 (``torch.utils.checkpoint``; the policies change memory, never a bit).
+
+Layout points (``parallel.sharding.constrain``): on a mesh's DTensors
+(the dry run, ``launch.dryrun``) each redistributes to its spec; on any
+other tensor it is the tensor itself, so nothing here changes a plain
+tensor's arithmetic.  Where the JAX model has them: the embedding's
+output (data, None, None); the decode cache's K/V after the write; the
+head's logits (data, None, model) in ``forward``, ``prefill`` and
+``_ce_sums``; the sequence-sharded carry under ``run.seq_shard``
+(Megatron-SP), and — since DTensor, unlike GSPMD, lays out a gradient
+where the forward left it — each branch's output before its residual
+add.  Where DTensor's propagation fails without one (GSPMD pads or
+chooses; DTensor refuses): q/k/v's flat projections to the K/V heads'
+``sharding.head_axes`` layout before they split into heads (q too, so
+that its heads split into groups evenly), and the heads merged whole
+before the output projection (``layers``; the cross-attention's heads
+too); every product's gradient brought back to its output's layout
+(``layers.dot``, ``sharding.pin``); a block's normed input, and the
+encoder's output, gathered along the sequence (``_gathered``); the
+target's logit reduced before its index (``_ce_sums``); a tied
+embedding's two uses pinned to its layout, so that their gradients add
+(``_embed``, ``_head_weight``); a gradient laid out as its parameter
+(``train.step``); a pending partial sum reduced before a bit operation
+(``numerics.fma``, ``numerics.cumsum``).  ``launch.dryrun`` registers
+DTensor's rule for a constant pad.
 """
 from __future__ import annotations
 
@@ -69,13 +93,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from .. import numerics
 from ..configs.base import ModelConfig, RunConfig
 from ..core.machine import resolve_device
+from ..parallel.sharding import (constrain, data_axes, head_axes,
+                                 mesh_axis_size, pin, tp_axis)
 from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (COMPUTE_DTYPE, NEG_INF, PARAM_DTYPE, apply_mlp,
                      attention, attn_out, attn_qkv, checkpoint, dense_init,
-                     dot, init_attn, init_mlp, rms_norm, xla_route)
+                     dot, init_attn, init_mlp, rms_norm, split_heads,
+                     xla_route)
 
 Params = Dict[str, Any]
 
@@ -244,6 +272,9 @@ def _self_attention(cfg: ModelConfig, run: RunConfig, p: Params, h, *,
         slot = min(max(pos, 0), ck.shape[1] - 1)
         ck[:, slot] = k[:, 0]
         cv[:, slot] = v[:, 0]
+        kvh_ax, kvhd_ax = head_axes(cfg.n_kv_heads, cfg.hd)
+        ck = constrain(ck, data_axes(), None, kvh_ax, kvhd_ax)
+        cv = constrain(cv, data_axes(), None, kvh_ax, kvhd_ax)
         o = attention(q, ck, cv, causal=False, kv_len=pos + 1)
         return attn_out(cfg, p, o), dict(cache, k=ck, v=cv)
 
@@ -300,15 +331,23 @@ def _cross_attention(cfg: ModelConfig, p: Params, h, enc_out=None,
     if cache is not None and enc_out is None:
         k, v = cache["xk"], cache["xv"]
     else:
-        B, Se, _ = enc_out.shape
-        k = dot(enc_out, p["wk"].to(enc_out.dtype)).reshape(
-            B, Se, cfg.n_kv_heads, cfg.hd)
-        v = dot(enc_out, p["wv"].to(enc_out.dtype)).reshape(
-            B, Se, cfg.n_kv_heads, cfg.hd)
-    B, S, _ = h.shape
-    q = dot(h, p["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+        k = split_heads(dot(enc_out, p["wk"].to(enc_out.dtype)),
+                        cfg.n_kv_heads, cfg.hd)
+        v = split_heads(dot(enc_out, p["wv"].to(enc_out.dtype)),
+                        cfg.n_kv_heads, cfg.hd)
+    q = split_heads(dot(h, p["wq"].to(h.dtype)), cfg.n_heads, cfg.hd,
+                    layout_heads=cfg.n_kv_heads)
     o = attention(q, k, v, causal=False)
     return attn_out(cfg, p, o), {"xk": k, "xv": v}
+
+
+def _gathered(h):
+    """A block's normed input (or the encoder's output), whole along the
+    sequence (a mesh's DTensor only): the carry is sequence-sharded
+    between blocks (Megatron-SP), and a product cannot take a batch and
+    sequence sharded over two mesh axes flattened into one dimension.
+    XLA gathers it inside the block at the same place."""
+    return constrain(h, data_axes(), None, None)
 
 
 def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
@@ -316,7 +355,16 @@ def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
     """Returns (x, new_cache, aux): aux is the MoE's auxiliary loss, an f32
     zero without experts."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    seq_shard = (mode == "train" and run.seq_shard and tp_axis() is not None
+                 and x.shape[1] % max(1, mesh_axis_size(tp_axis())) == 0)
+
+    def carry(t):
+        # Megatron-SP: the inter-block activation lives sequence-sharded
+        # over the TP axis, and so does each branch's output before its
+        # residual add (a reduce-scatter forward, a gather backward)
+        return constrain(t, data_axes(), tp_axis(), None) if seq_shard else t
+
+    h = _gathered(rms_norm(x, p["ln1"], cfg.norm_eps))
     if kind in ("attn", "local_attn"):
         y, new_cache = _self_attention(cfg, run, p["attn"], h, kind=kind,
                                        mode=mode, cache=cache, pos=pos,
@@ -337,23 +385,23 @@ def apply_block(cfg: ModelConfig, run: RunConfig, kind: str, p: Params, x, *,
         new_cache = st if mode in ("prefill", "decode") else {}
     else:
         raise ValueError(kind)
-    x = x + y
+    x = x + carry(y)
     if "xattn" in p:
-        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        hx = _gathered(rms_norm(x, p["ln_x"], cfg.norm_eps))
         y, xkv = _cross_attention(cfg, p["xattn"], hx, enc_out=enc_out,
                                   cache=cache)
-        x = x + y
+        x = x + carry(y)
         if mode in ("prefill", "decode"):
             new_cache = dict(new_cache, **xkv)
     if "ln2" in p:
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h2 = _gathered(rms_norm(x, p["ln2"], cfg.norm_eps))
         if "moe" in p:
             y, aux = moe_lib.apply_moe(cfg, p["moe"], h2,
                                        expert_scan=run.moe_expert_scan)
         else:
             y = apply_mlp(cfg, p["mlp"], h2)
-        x = x + y
-    return x, new_cache, aux
+        x = x + carry(y)
+    return carry(x), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -471,14 +519,14 @@ def _run_stack(cfg: ModelConfig, run: RunConfig, params: Params, x, *,
 def _embed(cfg: ModelConfig, params: Params, tokens, prefix_emb=None):
     # a gather whose backward sums each row's gradients in a fixed order
     # on the card too (PyTorch's embedding backward sorts the ids)
-    x = F.embedding(tokens, params["embed"]["tok"]).to(COMPUTE_DTYPE)
+    x = F.embedding(tokens, pin(params["embed"]["tok"])).to(COMPUTE_DTYPE)
     if cfg.emb_scale:
         x = x * float(math.sqrt(cfg.d_model))  # stays bf16
     if prefix_emb is not None:
         pe = dot(prefix_emb.to(COMPUTE_DTYPE),
                  params["frontend_proj"].to(COMPUTE_DTYPE))
         x = torch.cat([pe, x], dim=1)
-    return x
+    return constrain(x, data_axes(), None, None)
 
 
 def _encode(cfg: ModelConfig, run: RunConfig, params: Params, enc_emb):
@@ -486,7 +534,7 @@ def _encode(cfg: ModelConfig, run: RunConfig, params: Params, enc_emb):
             params["frontend_proj"].to(COMPUTE_DTYPE))
     x, _, _ = _run_stack(cfg, run, params, x, mode="train", causal=False,
                          tiles_key="enc_tiles", tail_key="enc_tail")
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return _gathered(rms_norm(x, params["enc_norm"], cfg.norm_eps))
 
 
 def _backbone(cfg: ModelConfig, run: RunConfig, params: Params,
@@ -507,7 +555,8 @@ def _backbone(cfg: ModelConfig, run: RunConfig, params: Params,
 
 def _head_weight(cfg: ModelConfig, params: Params):
     if cfg.tie_embeddings:
-        return params["embed"]["tok"].to(COMPUTE_DTYPE).T
+        # a tied table's two gradients each come back in its layout (pin)
+        return pin(params["embed"]["tok"]).to(COMPUTE_DTYPE).T
     return params["lm_head"].to(COMPUTE_DTYPE)
 
 
@@ -517,6 +566,7 @@ def forward(cfg: ModelConfig, run: RunConfig, params: Params,
     MoE auxiliary loss summed over the blocks, is zero without experts."""
     x, aux, cache = _backbone(cfg, run, params, batch, mode)
     logits = dot(x, _head_weight(cfg, params))
+    logits = constrain(logits, data_axes(), None, tp_axis())
     return logits, aux, (cache if mode == "prefill" else None)
 
 
@@ -525,11 +575,14 @@ def _ce_sums(cfg: ModelConfig, w, x, targets):
     logits cast to f32, the padded vocabulary's columns at -1e30, the
     log-sum-exp of each row less its target's logit, and the squares of
     the log-sum-exps."""
-    lg = dot(x, w).float()
+    lg = constrain(dot(x, w).float(), data_axes(), None, tp_axis())
     vocab_ids = torch.arange(lg.shape[-1], device=lg.device)
     lg = torch.where(vocab_ids < cfg.vocab, lg, NEG_INF)
     lse = torch.logsumexp(lg, dim=-1)
-    picked = lg.gather(-1, targets[..., None].long())[..., 0]
+    # the target's logit from a vocabulary-sharded DTensor is a masked
+    # partial sum: reduced before the index drops its last dimension
+    picked = constrain(lg.gather(-1, targets[..., None].long()),
+                       data_axes(), None, None)[..., 0]
     return (lse - picked).sum(), (lse * lse).sum()
 
 
@@ -575,17 +628,19 @@ def prefill(cfg: ModelConfig, run: RunConfig, params: Params,
             batch: Dict[str, Any]):
     """Returns (the last position's logits (B, V), the decode cache).
 
-    On CPU tensors the head is applied to all B * S rows and the last
-    position taken, as the JAX package does: a product over B rows sums in
-    another order than one over B * S rows and can differ in a last bit.
-    On the card the head is applied to the last position only (the same
-    function without the (B, S, V) tensor, 1.2 GB at qwen3-1.7b's serving
-    shape)."""
+    Under XLA's exact CPU forms (:func:`numerics.exact_forms`) the head
+    is applied to all B * S rows and the last position taken, as the JAX
+    package does: a product over B rows sums in another order than one
+    over B * S rows and can differ in a last bit.  On the card, and in the
+    dry run's :func:`numerics.card_forms`, the head is applied to the last
+    position only (the same function without the (B, S, V) tensor, 1.2 GB
+    at qwen3-1.7b's serving shape)."""
     x, _, cache = _backbone(cfg, run, params, batch, "prefill")
     w = _head_weight(cfg, params)
-    if x.device.type == "cpu":
-        return dot(x, w)[:, -1], cache
-    return dot(x[:, -1], w), cache
+    if numerics.exact_forms(x):
+        logits = constrain(dot(x, w), data_axes(), None, tp_axis())
+        return logits[:, -1], cache
+    return constrain(dot(x[:, -1], w), data_axes(), tp_axis()), cache
 
 
 def decode_step(cfg: ModelConfig, run: RunConfig, params: Params,

@@ -47,8 +47,9 @@ from ..kernels.mlstm_chunk.ops import mlstm_chunk
 from ..kernels.mlstm_chunk.ref import mlstm_chunk_ref
 from ..kernels.rglru_scan.ops import rglru_scan
 from ..kernels.rglru_scan.ref import rglru_scan_ref
-from .layers import (PARAM_DTYPE, dense_init, dot, gelu, rms_norm, sigmoid,
-                     silu, xla_active)
+from ..parallel import sharding
+from .layers import (PARAM_DTYPE, dense_init, dot, gelu, merge_heads,
+                     rms_norm, sigmoid, silu, split_heads, xla_active)
 
 RGLRU_C = 8.0
 CONV_WIDTH = 4
@@ -179,9 +180,9 @@ def apply_mlstm(cfg: ModelConfig, p: dict, x, cache=None, chunk: int = 256):
     gate = dot(x, p["w_gate"].to(dt))
     di = up.shape[-1]
     dh = di // H
-    q = dot(up, p["wq"].to(dt)).reshape(B, S, H, dh)
-    k = dot(up, p["wk"].to(dt)).reshape(B, S, H, dh)
-    v = dot(up, p["wv"].to(dt)).reshape(B, S, H, dh)
+    q = split_heads(dot(up, p["wq"].to(dt)), H, dh)
+    k = split_heads(dot(up, p["wk"].to(dt)), H, dh)
+    v = split_heads(dot(up, p["wv"].to(dt)), H, dh)
     log_f = -numerics.softplus(-(dot(up, p["wf"].to(dt)).float()
                                  + p["bf"].float()))
     log_i = torch.clamp_max(dot(up, p["wi"].to(dt)).float()
@@ -196,7 +197,7 @@ def apply_mlstm(cfg: ModelConfig, p: dict, x, cache=None, chunk: int = 256):
     out = (C0, n0) if in_place else None
     h, C, n = mlstm_scan_chunked(q, k, v, log_f, log_i, C0, n0, chunk,
                                  out=out)
-    y = h.reshape(B, S, di).to(dt) * silu(gate)
+    y = merge_heads(h).to(dt) * silu(gate)
     return dot(y, p["w_down"].to(dt)), {"C": C, "n": n}
 
 
@@ -244,12 +245,16 @@ def slstm_step(p, carry, xt, H: int):
     f32."""
     c, n, m, h = carry
     B, d = xt.shape
-    hb = h.reshape(B, H, d // H)
+    # on a mesh's DTensors h is whole along d where it splits into heads
+    # and merges back, forward and backward (its width may be sharded over
+    # more ranks than there are heads)
+    hb = sharding.constrain(h, sharding.data_axes(), None).reshape(
+        B, H, d // H)
 
     def pre(w, r):
         return (numerics.einsum("bd,de->be", xt, p[w].float())
-                + numerics.einsum("bhd,hde->bhe", hb,
-                                  p[r].float()).reshape(B, d))
+                + sharding.pin(numerics.einsum("bhd,hde->bhe", hb,
+                                               p[r].float()).reshape(B, d)))
 
     z = numerics.tanh(pre("wz", "rz"))
     o = sigmoid(pre("wo", "ro"))

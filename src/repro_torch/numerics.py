@@ -36,6 +36,7 @@ to bounds, not bits.  The forward bits do not change under autograd.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -170,8 +171,30 @@ def _tanh_xla(x):
         torch.ones_like(x), x), out)
 
 
-def _on_cpu(x) -> bool:
-    return x.device.type == "cpu"
+_CARD_FORMS = [False]
+
+
+@contextlib.contextmanager
+def card_forms():
+    """Inside the block CPU tensors take the card's forms too: every
+    function here, and ``models.layers``' ``dot`` and ``gelu``, run
+    PyTorch's plain operators instead of XLA's CPU arithmetic.  For the
+    dry run (``launch.dryrun``), which counts the operators of the card's
+    program while tracing on CPU tensors; nothing else enters it, so every
+    CPU result keeps its exact arithmetic.  Process-wide, not a thread's:
+    a checkpoint's recompute may run on the autograd engine's thread."""
+    prev = _CARD_FORMS[0]
+    _CARD_FORMS[0] = True
+    try:
+        yield
+    finally:
+        _CARD_FORMS[0] = prev
+
+
+def exact_forms(x) -> bool:
+    """Whether ``x`` takes XLA's exact CPU forms: a CPU tensor outside
+    :func:`card_forms`."""
+    return x.device.type == "cpu" and not _CARD_FORMS[0]
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +266,23 @@ _rsqrt_cpu = _unary("_Rsqrt", lambda x: torch.rsqrt(x.double()).to(x.dtype),
                     lambda g, x, ans: g * (-0.5 * (ans / x)))
 
 
+def _settled(x):
+    """A DTensor's pending partial sums reduced first (``Partial`` becomes
+    ``Replicate``): the bit operations of :func:`fma` and :func:`cumsum`
+    are not linear, and DTensor would carry a partial sum through them.
+    Any other value as it is."""
+    pl = getattr(x, "placements", None)
+    if pl is None or not any(p.is_partial() for p in pl):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in pl])
+
+
 def fma(a, b, c):
     """round_f32(a * b + c), one rounding, on every device.  Any operand
     may be a float; differentiable (VJP: g b, g a, g)."""
+    a, b, c = _settled(a), _settled(b), _settled(c)
     if any(torch.is_tensor(x) and x.requires_grad for x in (a, b, c)):
         return _Fma.apply(a, b, c)
     return _fma(a, b, c)
@@ -254,14 +291,14 @@ def fma(a, b, c):
 def exp(x):
     """exp in x's dtype (bf16 computes in f32 and rounds once, as XLA
     does); VJP g * ans."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return torch.exp(x)
     return _exp_cpu(x)
 
 
 def log1p(x):
     """VJP g / (1 + x)."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return torch.log1p(x)
     return _log1p_cpu(x)
 
@@ -269,14 +306,14 @@ def log1p(x):
 def sqrt(x):
     """Correctly rounded (via f64 on the CPU: rounding twice is exact for
     a square root); VJP g * (0.5 / ans)."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return torch.sqrt(x)
     return _sqrt_cpu(x)
 
 
 def tanh(x):
     """VJP (g + g * ans) * (1 - ans)."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return torch.tanh(x)
     return _tanh_cpu(x)
 
@@ -286,7 +323,7 @@ def muladd(a, b, c):
     fused multiply-add (:func:`fma`) on CPU tensors; on the card
     PyTorch's multiply and add."""
     like = next(x for x in (a, b, c) if torch.is_tensor(x))
-    return fma(a, b, c) if _on_cpu(like) else a * b + c
+    return fma(a, b, c) if exact_forms(like) else a * b + c
 
 
 def _softplus_value(x):
@@ -307,7 +344,7 @@ def softplus(x):
 def rsqrt(x):
     """1 / sqrt(x), correctly rounded on the CPU (see the module's note);
     VJP g * (-0.5 * ans / x)."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return torch.rsqrt(x)
     return _rsqrt_cpu(x)
 
@@ -389,7 +426,7 @@ def mean_sq(x):
     """mean(x * x) over the last axis of f32 ``x``, keeping the axis; on
     the CPU in XLA's order (:func:`_sum_last`).  The mean multiplies by
     1/N rounded to f32."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return torch.mean(x * x, dim=-1, keepdim=True)
     return _exact(_mean_sq_xla, lambda t: torch.mean(t * t, dim=-1,
                                                      keepdim=True), x)
@@ -403,7 +440,7 @@ def sum_product(x, y, dim: int):
     """``jnp.sum(x * y, axis=dim)`` (the product broadcast, fused into the
     reduction): on CPU tensors in XLA's order (:func:`_sum_last`), on the
     card PyTorch's."""
-    if not _on_cpu(x):
+    if not exact_forms(x):
         return (x * y).sum(dim)
     return _exact(_sum_product_xla, lambda a, b, d: (a * b).sum(d), x, y,
                   dim)
@@ -429,7 +466,7 @@ def einsum(eq: str, a, b):
     That is XLA's order wherever each free size is 1 or 17 to 64, the
     batch is not 1 and the contraction is 8 to 129 long (the mLSTM and
     sLSTM at their SMOKE width); on the card it is ``torch.einsum``."""
-    if not _on_cpu(a):
+    if not exact_forms(a):
         return torch.einsum(eq, a, b)
     return _exact(_einsum_xla, torch.einsum, eq, a, b)
 
@@ -499,7 +536,7 @@ def cumsum(x, dim: int):
     zeros to blocks of 16, each block's prefix left to right, and each
     element plus the sum of the earlier blocks' totals (their inclusive
     prefix, in the same order, shifted by one)."""
-    return _exact(_cumsum_xla, torch.cumsum, x, dim)
+    return _exact(_cumsum_xla, torch.cumsum, _settled(x), dim)
 
 
 def _cumsum_xla(x, dim: int):

@@ -77,7 +77,13 @@ def lr_at(run: RunConfig, step) -> torch.Tensor:
 
 
 def _sum_sq(x) -> torch.Tensor:
-    x = x.float().reshape(-1)
+    x = x.float()
+    if not numerics.exact_forms(x):
+        # the card's sum_product over the leaf unflattened (a contiguous
+        # tensor reduces as one row all the same; a DTensor sharded over
+        # two mesh axes does not flatten)
+        return (x * x).sum()
+    x = x.reshape(-1)
     return numerics.sum_product(x, x, 0)
 
 

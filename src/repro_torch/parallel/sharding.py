@@ -8,11 +8,14 @@ axis over ``model`` when divisible, else the *head_dim* axis, else
 replicate.  A spec is :class:`P`, a tuple of axis entries (``None``, an
 axis name or a tuple of names), as a JAX ``PartitionSpec`` is; the mesh
 the rules read is the one ``launch.mesh.mesh_context`` makes current.
-``constrain`` returns its tensor as it is: the port's collective programs
-are written per rank, so a tensor already is its rank's shard (the JAX
-package's ``constrain`` drops a shard_map body's Manual axes too, and is
-a no-op outside a mesh and on axes of size 1).  The placements that turn
-these specs into sharded tensors are built by the launcher, not here.
+:func:`placements` turns a spec into a ``DTensor``'s placements on a
+``DeviceMesh`` (``_named``'s place in the JAX package's launcher).
+``constrain`` is ``with_sharding_constraint``'s place: inside a
+``mesh_context``, a ``DTensor`` is redistributed to the spec's
+placements; any other tensor is returned as it is (the same object) —
+the port's collective programs are written per rank, so a plain tensor
+already is its rank's shard, as the JAX package's ``constrain`` drops a
+shard_map body's Manual axes and is a no-op outside a mesh.
 
 *The fleet half* — lane partitioning across devices (``LANE_AXIS``,
 ``fleet_mesh``, ``lane_sharding``, ``fleet_divisor``, ``shard_fleet``).
@@ -86,7 +89,10 @@ def mesh_axis_size(name: str) -> int:
     m = abstract_mesh()
     if m is None:
         return 1
-    return dict(zip(m.mesh_dim_names, m.mesh.shape)).get(name, 1)
+    # a DeviceMesh's own shape: its ``mesh`` tensor is built anew on every
+    # read, a fake one under FakeTensorMode (stand-ins carry only ``mesh``)
+    shape = m.shape if hasattr(m, "shape") else m.mesh.shape
+    return dict(zip(m.mesh_dim_names, shape)).get(name, 1)
 
 
 def data_axes_in_mesh() -> Tuple[str, ...]:
@@ -96,10 +102,67 @@ def data_axes_in_mesh() -> Tuple[str, ...]:
     return tuple(a for a in DATA_AXES if a in m.mesh_dim_names)
 
 
+def placements(mesh, spec) -> list:
+    """The ``DTensor`` placements of ``spec`` on ``mesh``: ``Shard(d)`` on
+    every mesh dimension that dimension ``d``'s entry names, ``Replicate``
+    on the others.  Axes the mesh lacks are dropped; an entry of several
+    axes (``("pod", "data")``) shards over them in mesh order, pod-major
+    as in JAX."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, e in enumerate(spec):
+        for a in (e if isinstance(e, (tuple, list)) else (e,)):
+            if a in names:
+                out[names.index(a)] = Shard(d)
+    return out
+
+
 def constrain(x, *spec_entries):
-    """with_sharding_constraint's place: ``x`` itself (see the module
-    docstring: every tensor of a per-rank program is its rank's shard)."""
-    return x
+    """with_sharding_constraint's place: inside a ``mesh_context``, a
+    ``DTensor`` redistributed to the placements of ``P(*spec_entries)``;
+    otherwise ``x`` itself (see the module docstring)."""
+    mesh = abstract_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    return x.redistribute(mesh, placements(mesh, spec_entries))
+
+
+def constrain_like(x, ref):
+    """``x`` laid out as ``ref`` when both are DTensors (a gradient as its
+    parameter: the reduction of a partial sum), else ``x`` itself."""
+    if not (_is_dtensor(x) and _is_dtensor(ref)):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+class _Pin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh = x.device_mesh
+        ctx.placements = [Replicate() if p.is_partial() else p
+                          for p in x.placements]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def pin(x):
+    """``x`` itself, forward; backward, a DTensor's gradient laid out as
+    ``x`` is (a partial sum's whole), where DTensor would pass it back in
+    whatever layout the later operators left it.  Any other tensor is
+    returned as it is."""
+    if abstract_mesh() is None or not _is_dtensor(x):
+        return x
+    return _Pin.apply(x)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def batch_spec(extra_dims: int = 1) -> P:

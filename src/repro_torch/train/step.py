@@ -34,6 +34,7 @@ from ..optim import compress as compress_lib
 from ..optim.adamw import (adamw_update, init_opt_state, tree_leaves,
                            tree_map)
 from ..parallel.collectives import mean_over
+from ..parallel.sharding import constrain_like
 
 METRICS = ("ce", "z_loss", "aux", "loss")
 
@@ -63,7 +64,10 @@ def grads_and_metrics(cfg: ModelConfig, run: RunConfig, params, batch):
     loss, metrics = lm.loss_fn(cfg, run, p, batch)
     wrt = [x for x in tree_leaves(leaf) if x.requires_grad]
     got = dict(zip(map(id, wrt), torch.autograd.grad(loss, wrt)))
-    grads = tree_map(lambda x: got[id(x)].float() if x.requires_grad
+    # on a mesh's DTensors each gradient is reduced to its parameter's
+    # layout, as JAX's partitioner lays out the gradient of a donated state
+    grads = tree_map(lambda x: constrain_like(got[id(x)].float(), x)
+                     if x.requires_grad
                      else torch.zeros_like(x, dtype=torch.float32), leaf)
     return grads, {k: metrics[k].detach() for k in METRICS}
 
