@@ -261,11 +261,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     cell's step on real tensors under ``opanalysis.analyze``, then three
     steps timed alone (nothing else running on the host) with
     ``max_memory_allocated``; then ``python -m repro_torch.launch.dryrun``
-    at full width on fake ``cuda`` tensors (no card memory), qwen3-1.7b
-    ``train_4k`` and recurrentgemma-2b ``long_500k``, each on 16x16 and
-    2x16x16 fake worlds in a process of its own: every cell ``OK`` with a
-    dominant term, dot FLOPs and bytes above zero, one line a cell with
-    ``fits_hbm`` and the roofline terms; meanwhile, here, the same step
+    at full width on fake ``cuda`` tensors (no card memory), each cell in
+    a process of its own, all started together: qwen3-1.7b ``train_4k``
+    and recurrentgemma-2b ``long_500k`` on 16x16 and 2x16x16 fake worlds,
+    then on 16x16 one cell a repair of the layouts DTensor refused —
+    dbrx-132b ``decode_32k`` (the MoE's routing), gemma-7b ``train_4k``
+    (attention over whole heads), recurrentgemma-2b ``prefill_32k`` (the
+    ring's prefill writes) and xlstm-350m ``train_4k`` (the xLSTM's
+    products on each rank's shards, its loops counted from one step,
+    ``while_trips``): every cell ``OK`` with a dominant term, dot FLOPs
+    and bytes above zero, one line a cell with ``fits_hbm``, the roofline
+    terms and ``while_trips``; meanwhile, here, the same step
     under ``opanalysis.analyze`` on fake tensors: dot FLOPs equal to the
     JAX package's one-device HLO count (``DRYRUN_DOT_FLOPS``) fake and
     real, no collective, the predicted peak bytes beside
@@ -3828,7 +3834,15 @@ def collective_hooks_phase(dev, card) -> dict:
 # train_full cell's operator count and roofline against a real step.
 # DRYRUN_DOT_FLOPS: the JAX package's one-device HLO dot count of that step
 # (scripts/torch_port_pins.py --only dryrun)
-DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("recurrentgemma-2b", "long_500k"))
+# (arch, shape, both meshes): the first two on 16x16 and 2x16x16, then on
+# 16x16 a cell a repaired layout: the MoE's routing, attention over whole
+# heads, the ring's prefill writes, the xLSTM (its loops counted)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", True),
+                ("recurrentgemma-2b", "long_500k", True),
+                ("dbrx-132b", "decode_32k", False),
+                ("gemma-7b", "train_4k", False),
+                ("recurrentgemma-2b", "prefill_32k", False),
+                ("xlstm-350m", "train_4k", False))
 DRYRUN_DOT_FLOPS = 27_384_753_422_336
 DRYRUN_STEPS = 3
 DRYRUN_TIMEOUT_S = 400
@@ -3836,16 +3850,17 @@ DRYRUN_TIMEOUT_S = 400
 
 def dryrun_cells(directory) -> list:
     """Start one ``python -m repro_torch.launch.dryrun`` a cell of
-    DRYRUN_CELLS on both meshes, fake tensors on the card's device type;
+    DRYRUN_CELLS on its meshes, fake tensors on the card's device type;
     returns (arch, shape, out, log, process) each."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, both in DRYRUN_CELLS:
         out = Path(directory) / f"{arch}_{shape}.json"
         log = open(Path(directory) / f"{arch}_{shape}.log", "w")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--both-meshes", "--device", "cuda",
+               arch, "--shape", shape, "--device", "cuda",
                "--out", str(out), "--label", "chip_smoke"]
+        cmd += ["--both-meshes"] if both else []
         procs.append((arch, shape, out, log, subprocess.Popen(
             cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
     return procs
@@ -3853,7 +3868,8 @@ def dryrun_cells(directory) -> list:
 
 def dryrun_cell_lines(procs, card) -> list:
     """Wait for the cells of :func:`dryrun_cells` and check each: status
-    OK, a dominant term, dot FLOPs and bytes above zero."""
+    OK, a dominant term, dot FLOPs and bytes above zero, loops counted
+    (``while_trips``) where a cell has them (the xLSTM's)."""
     lines = []
     for arch, shape, out, log, proc in procs:
         try:
@@ -3871,7 +3887,8 @@ def dryrun_cell_lines(procs, card) -> list:
             if c["status"] != "OK" or r.get("dominant") not in (
                     "compute", "memory", "collective") \
                     or not c["hlo_dot_flops_per_device"] > 0 \
-                    or not c["bytes_per_device"] > 0:
+                    or not c["bytes_per_device"] > 0 \
+                    or (c["arch"] == "xlstm-350m") != bool(c["while_trips"]):
                 raise AssertionError(f"dry run cell {c['arch']} "
                                      f"{c['shape']} {c['mesh']}: "
                                      f"{c.get('error')}\n{tail}")
@@ -3883,7 +3900,8 @@ def dryrun_cell_lines(procs, card) -> list:
                     "hlo_dot_flops_per_device", "hlo_mem_bytes_per_device",
                     "collective_wire_bytes_per_device", "collectives",
                     "wire_bytes_by_group_size", "model_flops_per_device",
-                    "useful_flops_ratio", "roofline_fraction")},
+                    "useful_flops_ratio", "roofline_fraction",
+                    "while_trips")},
                 "roofline": r})
     return lines
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ... import numerics
+from ...loops import time_loop
 
 
 def mlstm_seq(q, k, v, log_f, log_i, C0, n0):
@@ -95,8 +96,11 @@ def mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, K: int):
     scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
     causal = torch.tril(torch.ones((K, K), dtype=torch.bool,
                                    device=q.device))
-    C, n, hs = C0, n0, []
-    for c0 in range(0, S, K):
+
+    def chunk(consts, carry, i):
+        q, k, v, log_f, log_i = consts
+        C, n = carry
+        c0 = i * K
         qc = q[:, c0:c0 + K].float() * scale
         kc, vc = k[:, c0:c0 + K].float(), v[:, c0:c0 + K].float()
         lf, li = log_f[:, c0:c0 + K], log_i[:, c0:c0 + K]
@@ -120,7 +124,7 @@ def mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, K: int):
         else:
             num = inter + numerics.einsum("bjlh,blhe->bjhe", scores, vc)
         den = (inter_n + intra_n).abs()
-        hs.append(num / torch.clamp_min(den, 1.0)[..., None])
+        h = num / torch.clamp_min(den, 1.0)[..., None]
         # the state update: decay to the end of the chunk
         d_end = d_cum[:, -1]  # (B, H)
         k_gate = numerics.exp(d_end[:, None] - d_cum + li)[..., None]
@@ -129,6 +133,11 @@ def mlstm_chunk_ref(q, k, v, log_f, log_i, C0, n0, K: int):
                             numerics.einsum("blhd,blhe->bhde", k_dec, vc))
         n = numerics.muladd(n, numerics.exp(d_end)[..., None],
                             numerics.sum_product(kc, k_gate, 1))
+        return (C, n), h
+
+    # a scan over the chunks (counted from one chunk by the dry run's
+    # analyzer, as the JAX model's lax.scan is)
+    (C, n), hs = time_loop(chunk, (C0, n0), (q, k, v, log_f, log_i), S // K)
     return torch.cat(hs, 1), C, n
 
 

@@ -26,9 +26,16 @@ world.  Per cell this:
 
 With ``--all`` each (arch x shape) cell traces in a child process of its
 own, ``--workers`` at a time: a fake world per process, and a cell still
-tracing after ``--timeout`` seconds (xlstm-350m's sLSTM loops over every
-time step in Python) is stopped and recorded as ``FAIL`` with its time.
+tracing after ``--timeout`` seconds is stopped and recorded as ``FAIL``
+with its time.  Every cell of every arch traces on both meshes.
 ``scripts/torch_dryrun_table.py`` renders the results as a table.
+
+A loop over time (:func:`repro_torch.loops.time_loop`: the sLSTM's
+4,096 steps at ``train_4k`` and 32,768 at ``prefill_32k``, the chunked
+mLSTM's chunks) is counted as the JAX package's ``hloanalysis`` counts a
+``while`` loop: one traced step's operators times its trip count,
+forward and backward (:func:`opanalysis.analyze`); ``while_trips``
+lists the loops' trip counts.
 
 Every cell, serve cells included, traces the model's plain (XLA) forms:
 the port's kernels take raw pointers and can take neither fake tensors nor
@@ -37,7 +44,7 @@ reaches a Pallas kernel).  On the CPU (``--device cpu``) the trace also
 runs under :func:`repro_torch.numerics.card_forms`, so it counts the
 card's arithmetic, not the CPU's exact forms.  A step's JSON keys and
 printed line are the JAX dry run's, except ``trace_s`` for
-``compile_s`` and no ``cost_analysis_*`` or ``while_trips``.
+``compile_s`` and no ``cost_analysis_*``.
 """
 from __future__ import annotations
 
@@ -102,28 +109,37 @@ def fake_world(n_ranks: int) -> None:
                             world_size=n_ranks)
 
 
-def pad_rule() -> None:
-    """Register DTensor's rule for a constant pad: each rank pads its own
-    shard of a dimension the pad leaves whole (sharded there, or
-    replicated).  The card's torch (2.11) has no working rule for a pad
-    over a mesh of two or more dimensions: it suggests one placement a
-    tensor where the mesh needs one a dimension."""
+def _shardwise_rule(op, touched) -> None:
+    """Register DTensor's rule for ``op``: each rank applies it to its own
+    shard of a dimension it leaves whole (sharded there, or replicated);
+    ``touched(x, *args)`` names the dimensions it changes."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
     from torch.distributed.tensor._ops.utils import \
         expand_to_full_mesh_op_strategy
 
     def strategy(op_schema):
-        x, pad = op_schema.args_schema[:2]
-        padded = {x.ndim - 1 - i // 2 for i, w in enumerate(pad) if w}
+        x, *args = op_schema.args_schema
+        changed = touched(x, *args)
         single = [[Replicate(), Replicate()]] + [
-            [Shard(d), Shard(d)] for d in range(x.ndim) if d not in padded]
+            [Shard(d), Shard(d)] for d in range(x.ndim) if d not in changed]
         return expand_to_full_mesh_op_strategy(
             op_schema.get_mesh_from_args(), op_schema, single)
 
     DTensor._op_dispatcher.sharding_propagator.register_op_strategy(
-        torch.ops.aten.constant_pad_nd.default, strategy,
-        RuntimeSchemaInfo(1))  # the widths and the value are static
+        op, strategy, RuntimeSchemaInfo(1))  # its other arguments are static
+
+
+def dtensor_rules() -> None:
+    """The rules the card's torch (2.11) lacks on a mesh of two or more
+    dimensions: a constant pad (it suggests one placement a tensor where
+    the mesh needs one a dimension) and a flip (none; a cumulative sum's
+    backward flips its gradient)."""
+    _shardwise_rule(torch.ops.aten.constant_pad_nd.default,
+                    lambda x, pad, *_: {x.ndim - 1 - i // 2
+                                        for i, w in enumerate(pad) if w})
+    _shardwise_rule(torch.ops.aten.flip.default,
+                    lambda x, dims: {d % x.ndim for d in dims})
 
 
 def trace_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -142,7 +158,7 @@ def trace_cell(arch: str, shape_name: str, *, multi_pod: bool,
     run = run or dryrun_runconfig()
     set_sharding_mode(run.sharding_mode)
     fake_world(512 if multi_pod else 256)
-    pad_rule()
+    dtensor_rules()
     mesh = make_production_mesh(multi_pod=multi_pod, device_type=dev.type)
 
     with FakeTensorMode(), mesh_context(mesh), implicit_replication(), \
@@ -199,6 +215,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                                   for k, v in stats.by_group_size.items()},
         mem_by_kind={k: v for k, v in sorted(stats.mem_by_kind.items(),
                                              key=lambda kv: -kv[1])[:12]},
+        while_trips=stats.while_trips,
         roofline=terms.to_dict(),
         model_flops_per_device=model_fl,
         useful_flops_ratio=(model_fl / stats.dot_flops

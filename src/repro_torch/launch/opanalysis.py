@@ -12,9 +12,22 @@ The port has no HLO.  :func:`analyze` runs ``fn`` once under one
   its output's shape (``ShardingPropagator._propagate_tensor_meta``);
   ``FakeTensorMode`` runs after every user mode, so this mode would see
   those calls too: they are not counted;
-* loops need no trip counts: eager code runs every iteration, a
-  checkpoint's recompute included (JAX's ``while_trips`` has no
-  counterpart);
+* loops: eager code runs every iteration, a checkpoint's recompute
+  included, but a loop over time (:func:`repro_torch.loops.time_loop`:
+  the sLSTM's steps, the chunked mLSTM's chunks) is counted as
+  ``hloanalysis`` multiplies a ``while`` body by its trip count: the
+  steps run one by one until the carry's layout repeats, then one step
+  stands for the m steps before the last, its operators' dot FLOPs,
+  bytes and collectives counted m times, and its backward too (an
+  autograd function around the step whose backward runs under the same
+  multiplier and adds each read tensor's gradient m - 1 more times, as
+  the eager loop's accumulation does), then the last step runs: the
+  eager loop's count exactly, from a few traced steps.  Live bytes: the
+  repeated step's growth (what the loop keeps of a step: the tensors
+  its backward saves, its y) is held m - 1 more times until the step's
+  y dies.  ``while_trips`` lists the trip count of each loop of more
+  than one step, once a run (forward, recompute) and once the backward
+  of a counted step;
 * **dot FLOPs** by ``torch.utils.flop_counter``'s formulas (``mm``,
   ``bmm``, ``addmm``, ``baddbmm``, convolution, SDPA): XLA's ``dot``
   count, equal to the JAX package's one-device HLO count;
@@ -49,6 +62,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
+
+from .. import loops
 
 COLLECTIVE_KINDS = {"all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "collective-permute"}
@@ -93,6 +108,7 @@ class OpStats:
     mem_by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
     peak_bytes: int = 0      # live storage bytes at their peak
     argument_bytes: int = 0  # live at the start (the arguments)
+    while_trips: list = dataclasses.field(default_factory=list)
 
     @property
     def collective_wire_bytes(self) -> int:
@@ -153,6 +169,7 @@ class _Counter(TorchDispatchMode):
         self.live: Dict[int, int] = {}   # id(storage) -> bytes
         self.now = 0
         self.paused = 0  # inside DTensor's global-shape meta propagation
+        self.mult = 1    # executions each operator stands for (time_loop)
 
     # -- live bytes ---------------------------------------------------------
     def track(self, t: torch.Tensor) -> None:
@@ -172,6 +189,70 @@ class _Counter(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.now -= self.live.pop(key, 0)
 
+    def hold(self, nbytes: int, t: torch.Tensor) -> None:
+        """``nbytes`` more live bytes until ``t``'s storage dies."""
+        self.now += nbytes
+        self.stats.peak_bytes = max(self.stats.peak_bytes, self.now)
+        weakref.finalize(_local(t).untyped_storage(), self._release, nbytes)
+
+    def _release(self, nbytes: int) -> None:
+        self.now -= nbytes
+
+    @contextlib.contextmanager
+    def times(self, n: int):
+        """Count each operator inside as ``n`` executions."""
+        prev = self.mult
+        self.mult = prev * n
+        try:
+            yield
+        finally:
+            self.mult = prev
+
+    # -- a loop over time ---------------------------------------------------
+    def time_loop(self, step, carry, consts, n: int):
+        """:func:`loops.time_loop`, counted (the module docstring): the
+        steps one at a time until the carry's layout repeats, then one
+        step standing for all but the last, then the last."""
+        if n > 1:
+            self.stats.while_trips.append(n)
+        ys, t, prev, growth = [], 0, None, None
+        while t < n:
+            m = n - t - 1
+            if growth is not None and m > 1:
+                carry, y = self._repeat(step, consts, carry, t, m, n)
+                ys += [y] * m
+                self.hold((m - 1) * growth, y)
+                t, growth = t + m, None
+                continue
+            before = self.now
+            carry, y = step(consts, carry, t)
+            ys.append(y)
+            t += 1
+            lay = _layout(carry)
+            if lay == prev:
+                growth = self.now - before
+            prev = lay
+        return carry, ys
+
+    def _repeat(self, step, consts, carry, t: int, m: int, n: int):
+        """Step ``t`` counted ``m`` times: (carry, y)."""
+        nc, at = len(consts), []
+
+        def fn(flat):
+            c, y = step(tuple(flat[:nc]), tuple(flat[nc:]), t)
+            # y, when it is a tensor of the carry, is not a second output
+            # (its gradient would be added once more a step)
+            at[:] = [i for i, x in enumerate(c) if x is y] or [len(c)]
+            return tuple(c) + ((y,) if at[0] == len(c) else ())
+
+        flat = list(consts) + list(carry)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in flat):
+            outs = _Repeat.apply((self, m, n, nc, fn), *flat)
+        else:
+            with self.times(m):
+                outs = fn(flat)
+        return tuple(outs[:len(carry)]), outs[at[0]]
+
     # -- dispatch -----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -181,31 +262,87 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self.paused:
             return out
-        s = self.stats
+        s, k = self.stats, self.mult
         packet = func._overloadpacket
         if packet in flop_registry:
-            s.dot_flops += int(flop_registry[packet](*args, **kwargs,
-                                                     out_val=out))
+            s.dot_flops += k * int(flop_registry[packet](*args, **kwargs,
+                                                         out_val=out))
         outs = _tensors(out)
         for t in outs:
             self.track(t)
         if packet._qualified_op_name in _SKIP_MEM or not outs:
             return out
         in_b, out_b = _nbytes((args, kwargs)), _nbytes(out)
-        s.mem_bytes += in_b + out_b
+        s.mem_bytes += k * (in_b + out_b)
         name = packet.__name__
-        s.mem_by_kind[name] = s.mem_by_kind.get(name, 0) + in_b + out_b
+        s.mem_by_kind[name] = s.mem_by_kind.get(name, 0) + k * (in_b + out_b)
         kind = _COLLECTIVES.get(name)
         if kind is not None:
             n = _group_size(args, kwargs)
             payload = _nbytes(args[0])
             cs = s.collectives.setdefault(kind, CollectiveStat())
-            cs.count += 1
-            cs.payload_bytes += payload
+            cs.count += k
+            cs.payload_bytes += k * payload
             wire = _ring_wire_bytes(kind, payload, out_b, n)
-            cs.wire_bytes += wire
-            s.by_group_size[n] = s.by_group_size.get(n, 0) + wire
+            cs.wire_bytes += k * wire
+            s.by_group_size[n] = s.by_group_size.get(n, 0) + k * wire
         return out
+
+
+def _layout(tree) -> tuple:
+    """Shapes, dtypes and DTensor placements of a carry."""
+    return tuple((tuple(t.shape), t.dtype, tuple(getattr(t, "placements",
+                                                         ())))
+                 for t in _tensors(tree))
+
+
+def _same(t):
+    return t
+
+
+class _Repeat(torch.autograd.Function):
+    """A step of a counted loop that stands for ``m``: its forward and
+    its backward each run once, under the counter's multiplier ``m``; an
+    input the eager loop reads every step (``consts``) has its gradient
+    added ``m - 1`` more times, as the eager loop's accumulation of ``m``
+    contributions does."""
+
+    @staticmethod
+    def forward(ctx, info, *flat):
+        counter, m, n, nc, fn = info
+        ctx.set_materialize_grads(False)
+        ctx.info = info
+        ctx.leaves = [x.detach().requires_grad_(x.requires_grad)
+                      for x in flat]
+        # the step's saved tensors are its own graph's: a checkpoint's
+        # hooks around the loop would recompute the block for this graph
+        # too (another graph task)
+        with torch.enable_grad(), counter.times(m), \
+                torch.autograd.graph.saved_tensors_hooks(_same, _same):
+            ctx.outs = fn(ctx.leaves)
+        return tuple(o.detach() for o in ctx.outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        counter, m, n, nc, fn = ctx.info
+        counter.stats.while_trips.append(n)
+        pairs = [(o, g) for o, g in zip(ctx.outs, grads)
+                 if g is not None and o.requires_grad]
+        need = [i for i, x in enumerate(ctx.leaves) if x.requires_grad]
+        out = [None] * len(ctx.leaves)
+        if pairs and need:
+            with counter.times(m):
+                got = torch.autograd.grad(
+                    [o for o, _ in pairs], [ctx.leaves[i] for i in need],
+                    [g for _, g in pairs], allow_unused=True)
+            for i, g in zip(need, got):
+                out[i] = g
+            with counter.times(m - 1):  # the eager loop's accumulation
+                for g in out[:nc]:
+                    if g is not None:
+                        g + g  # an addition of the gradient's layout
+        del ctx.outs, ctx.leaves
+        return (None, *out)
 
 
 def analyze(fn, *args, **kwargs) -> OpStats:
@@ -217,8 +354,12 @@ def analyze(fn, *args, **kwargs) -> OpStats:
     for t in _tensors((args, kwargs)):
         counter.track(_local(t))
     stats.argument_bytes = counter.now
-    with _unseen_meta_propagation(counter), counter:
-        fn(*args, **kwargs)
+    loops.HOOK[0] = counter.time_loop
+    try:
+        with _unseen_meta_propagation(counter), counter:
+            fn(*args, **kwargs)
+    finally:
+        loops.HOOK[0] = None
     return stats
 
 

@@ -33,6 +33,7 @@ they change nothing.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Optional
@@ -199,12 +200,41 @@ def apply_rope(x, positions, theta: float):
 # Attention
 # ---------------------------------------------------------------------------
 
+def whole_heads(*ts) -> bool:
+    """Whether these are a mesh's DTensors sharded over whole heads
+    (dimension 2) and the batch alone: no head_dim shard, no partial
+    sum."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ps = [p for t in ts if isinstance(t, DTensor) for p in t.placements]
+    return (any(p == Shard(2) for p in ps)
+            and all(p in (Replicate(), Shard(0), Shard(2)) for p in ps))
+
+
+def per_head(fn, q, k, v, mask):
+    """``fn(q, k, v, mask)``, attention over heads of q, k, v at dimension
+    2, row by row.  Where they are a mesh's DTensors sharded over whole
+    heads (:func:`whole_heads`), each rank runs it on its own batch rows
+    and heads (:func:`sharding.local_map`): its products would otherwise
+    flatten batch and heads, both sharded, into one dimension, which
+    DTensor refuses.  Otherwise (any plain tensor) ``fn`` itself."""
+    if not whole_heads(q, k, v):
+        return fn(q, k, v, mask)
+    return sharding.local_map(fn, (q, k, v, mask), ((0, 2),) * 3 + ((0,),),
+                              (0, 2))
+
+
 def _sdpa(q, k, v, mask, scale: float):
     """q: (B, Sq, Hkv, G, hd); k/v: (B, Skv, Hkv, hd); mask: (B, Sq, Skv).
 
     GQA convention throughout the framework: query head hq = hkv * G + g.
     Both products take their operands in the input dtype and accumulate
-    in f32 (the JAX einsums' ``preferred_element_type`` and bf16 dot)."""
+    in f32 (the JAX einsums' ``preferred_element_type`` and bf16 dot);
+    each rank's own heads on a mesh (:func:`per_head`)."""
+    return per_head(functools.partial(_sdpa_rows, scale=scale), q, k, v,
+                    mask)
+
+
+def _sdpa_rows(q, k, v, mask, scale: float):
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
     # a Python scalar: a scalar tensor made on the card is a host copy
     # that waits for the device

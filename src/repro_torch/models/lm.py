@@ -78,8 +78,18 @@ target's logit reduced before its index (``_ce_sums``); a tied
 embedding's two uses pinned to its layout, so that their gradients add
 (``_embed``, ``_head_weight``); a gradient laid out as its parameter
 (``train.step``); a pending partial sum reduced before a bit operation
-(``numerics.fma``, ``numerics.cumsum``).  ``launch.dryrun`` registers
-DTensor's rule for a constant pad.
+(``numerics.fma``, ``numerics.cumsum``).  Where DTensor has no rule
+for a layout, a row-wise function runs on each rank's own shards
+(``sharding.local_map``, GSPMD's sharded ``vmap``): the MoE's routing,
+dispatch, combine and aux by batch row (``moe.py``), attention's
+products by batch row and head where whole heads are sharded
+(``layers.per_head``: DTensor would flatten batch and heads, both
+sharded); every ``numerics.einsum`` of DTensors is each rank's product
+of its shards (``sharding.einsum``: the xLSTM's).  The ring's prefill is
+a rotation (:func:`_ring`; an index write has no rule), and a dimension
+its axes do not divide (a batch of one) stays whole in ``constrain``.
+``launch.dryrun`` registers DTensor's rules for a constant pad and a
+flip.
 """
 from __future__ import annotations
 
@@ -102,8 +112,8 @@ from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (COMPUTE_DTYPE, NEG_INF, PARAM_DTYPE, apply_mlp,
                      attention, attn_out, attn_qkv, checkpoint, dense_init,
-                     dot, init_attn, init_mlp, rms_norm, split_heads,
-                     xla_route)
+                     dot, init_attn, init_mlp, per_head, rms_norm,
+                     split_heads, xla_route)
 
 Params = Dict[str, Any]
 
@@ -291,13 +301,9 @@ def _self_attention(cfg: ModelConfig, run: RunConfig, p: Params, h, *,
             w = min(cfg.window, S)
             last_pos = torch.arange(S - w, S, dtype=torch.int32,
                                     device=h.device)
-            slots = (last_pos % w).long()
-            kk, vv = torch.zeros_like(k[:, -w:]), torch.zeros_like(v[:, -w:])
-            kk[:, slots] = k[:, -w:]
-            vv[:, slots] = v[:, -w:]
-            sp = torch.full((w,), -1, dtype=torch.int32, device=h.device)
-            sp[slots] = last_pos
-            new_cache = {"k": kk, "v": vv, "slot_pos": sp}
+            new_cache = {"k": _ring(k[:, -w:], 1, S),
+                         "v": _ring(v[:, -w:], 1, S),
+                         "slot_pos": _ring(last_pos, 0, S)}
         else:
             pad = run.decode_budget
             if pad:
@@ -307,10 +313,27 @@ def _self_attention(cfg: ModelConfig, run: RunConfig, p: Params, h, *,
     return out, new_cache
 
 
+def _ring(x, dim: int, end: int):
+    """The w positions ``end - w .. end - 1`` that ``x`` holds along
+    ``dim``, as a new ring of w slots, position t in slot t % w: ``x``
+    rotated by ``end % w``, two slices and a concatenation (exact; an
+    index write has no DTensor rule)."""
+    cut = x.shape[dim] - end % x.shape[dim]
+    if cut == x.shape[dim]:
+        return x.clone()
+    return torch.cat([x.narrow(dim, cut, x.shape[dim] - cut),
+                      x.narrow(dim, 0, cut)], dim)
+
+
 def _masked_decode_attn(q, k, v, mask):
     """q: (B,1,Hq,hd); k/v: (B,W,Hkv,hd); mask: (B,1,W).  The JAX model's
     plain masked attention (no Pallas kernel computes it there either):
-    f32 logits, softmax, probabilities in v's dtype for P V."""
+    f32 logits, softmax, probabilities in v's dtype for P V; each rank's
+    own heads on a mesh (:func:`layers.per_head`)."""
+    return per_head(_masked_decode_rows, q, k, v, mask)
+
+
+def _masked_decode_rows(q, k, v, mask):
     B, _, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv

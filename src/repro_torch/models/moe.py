@@ -32,6 +32,7 @@ softmax, its sums and every product round as XLA's CPU backend does
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -39,6 +40,7 @@ import torch
 
 from .. import numerics
 from ..configs.base import ModelConfig, MoeConfig
+from ..parallel.sharding import local_map
 from .layers import act_fn, apply_mlp, dense_init, dot, init_mlp
 
 
@@ -106,10 +108,20 @@ def route(cfg: ModelConfig, p: dict, x) -> Routing:
     return plan(cfg, logits, probs, top_e, top_w / _row_sum(top_w))
 
 
+# every tensor of the routing is batch first: a rank keeps its own rows
+_ROWS = ((0,),)
+
+
 def plan(cfg: ModelConfig, logits, probs, top_e, top_w) -> Routing:
     """The dispatch plan of chosen experts ``top_e`` (B, S, k) and their
     renormalised weights: the slots stably sorted by expert, each slot's
-    rank within its expert, the capacity cut."""
+    rank within its expert, the capacity cut.  Row by row: on a mesh's
+    DTensors, on each rank's own rows (:func:`sharding.local_map`)."""
+    return local_map(functools.partial(_plan, cfg),
+                     (logits, probs, top_e, top_w), _ROWS * 4, _ROWS[0])
+
+
+def _plan(cfg: ModelConfig, logits, probs, top_e, top_w) -> Routing:
     e = cfg.moe
     B, S, k = top_e.shape
     E = e.n_experts
@@ -118,8 +130,11 @@ def plan(cfg: ModelConfig, logits, probs, top_e, top_w) -> Routing:
     order = torch.sort(flat_e, dim=-1, stable=True).indices
     se = flat_e.gather(1, order)
     stok = order // k                      # token of each sorted slot
-    experts = torch.arange(E, device=top_e.device).expand(B, E).contiguous()
-    first = torch.searchsorted(se, experts, right=False)    # (B, E)
+    # the first sorted slot of each expert: the slots whose expert is
+    # below it (a compare and a sum over the slots, which a row-sharded
+    # DTensor can take; searchsorted of ``se`` has no sharding rule)
+    experts = torch.arange(E, device=top_e.device)
+    first = (flat_e[:, :, None] < experts).sum(1)            # (B, E)
     rank_sorted = (torch.arange(S * k, device=top_e.device)
                    - first.gather(1, se))
     # back to each (token, choice) slot's own place
@@ -204,13 +219,20 @@ def apply_moe(cfg: ModelConfig, p: dict, x,
     e = cfg.moe
     B, S, d = x.shape
     r = route(cfg, p, x)
-    buf = _dispatch(r, x, e.n_experts)
+    buf = local_map(functools.partial(_dispatch, E=e.n_experts), (r, x),
+                    _ROWS * 2, _ROWS[0])
     ybuf = _experts(cfg, p, buf, expert_scan).reshape(B, e.n_experts * r.C,
                                                       d)
-    y = _combine(r, ybuf, S)
+    y = local_map(functools.partial(_combine, S=S), (r, ybuf), _ROWS * 2,
+                  _ROWS[0])
+    # the aux loss (and the tensors its backward saves) before the shared
+    # experts: a checkpoint's recompute stops at the last saved tensor,
+    # so it skips the shared MLP's last product, as XLA's remat does
+    aux = local_map(functools.partial(_aux, cfg), (r,), _ROWS,
+                    _ROWS[0]).mean()
     if e.n_shared:
         y = y + apply_mlp(cfg, p["shared"], x)
-    return y, _aux(cfg, r).mean()
+    return y, aux
 
 
 def drops(r: Routing) -> int:

@@ -47,6 +47,7 @@ from ..kernels.mlstm_chunk.ops import mlstm_chunk
 from ..kernels.mlstm_chunk.ref import mlstm_chunk_ref
 from ..kernels.rglru_scan.ops import rglru_scan
 from ..kernels.rglru_scan.ref import rglru_scan_ref
+from ..loops import time_loop
 from ..parallel import sharding
 from .layers import (PARAM_DTYPE, dense_init, dot, gelu, merge_heads,
                      rms_norm, sigmoid, silu, split_heads, xla_active)
@@ -272,18 +273,22 @@ def slstm_step(p, carry, xt, H: int):
 
 def apply_slstm(cfg: ModelConfig, p: dict, x, cache=None):
     """x: (B, S, d) -> (y, cache {c, n, m, h}); the JAX model's
-    ``lax.scan`` over time as a Python loop."""
+    ``lax.scan`` over time as a Python loop (:func:`loops.time_loop`)."""
     B, S, d = x.shape
     if cache is None:
         zeros = torch.zeros((B, d), dtype=torch.float32, device=x.device)
         carry = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
     else:
         carry = (cache["c"], cache["n"], cache["m"], cache["h"])
-    xf = x.float()
-    hs = []
-    for t in range(S):
-        carry = slstm_step(p, carry, xf[:, t], cfg.n_heads)
-        hs.append(carry[3])
+    names = sorted(p)
+
+    def step(consts, carry, t):
+        carry = slstm_step(dict(zip(names, consts[1:])), carry,
+                           consts[0][:, t], cfg.n_heads)
+        return carry, carry[3]
+
+    carry, hs = time_loop(step, carry, (x.float(), *(p[k] for k in names)),
+                          S)
     h = rms_norm(torch.stack(hs, 1), p["norm"], cfg.norm_eps)
     y = dot(h.to(x.dtype), p["w_down"].to(x.dtype))
     return y, dict(zip(("c", "n", "m", "h"), carry))

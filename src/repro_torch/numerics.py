@@ -465,9 +465,12 @@ def einsum(eq: str, a, b):
     first 8 terms as rounded products, one by one, and fuses the rest.
     That is XLA's order wherever each free size is 1 or 17 to 64, the
     batch is not 1 and the contraction is 8 to 129 long (the mLSTM and
-    sLSTM at their SMOKE width); on the card it is ``torch.einsum``."""
+    sLSTM at their SMOKE width); on the card it is ``torch.einsum``
+    (of a mesh's DTensors, each rank's product of its shards:
+    :func:`repro_torch.parallel.sharding.einsum`)."""
     if not exact_forms(a):
-        return torch.einsum(eq, a, b)
+        from .parallel import sharding
+        return sharding.einsum(eq, a, b)
     return _exact(_einsum_xla, torch.einsum, eq, a, b)
 
 

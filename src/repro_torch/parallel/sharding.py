@@ -121,11 +121,21 @@ def placements(mesh, spec) -> list:
 def constrain(x, *spec_entries):
     """with_sharding_constraint's place: inside a ``mesh_context``, a
     ``DTensor`` redistributed to the placements of ``P(*spec_entries)``;
-    otherwise ``x`` itself (see the module docstring)."""
+    otherwise ``x`` itself (see the module docstring).  A dimension its
+    axes do not divide (a batch of one over the data axes) stays whole:
+    GSPMD pads it, and DTensor refuses views of uneven shards."""
+    from torch.distributed.tensor import Replicate, Shard
     mesh = abstract_mesh()
     if mesh is None or not _is_dtensor(x):
         return x
-    return x.redistribute(mesh, placements(mesh, spec_entries))
+    out = placements(mesh, spec_entries)
+    for d in {p.dim for p in out if isinstance(p, Shard)}:
+        n = 1
+        for m, p in zip(mesh.shape, out):
+            n *= m if p == Shard(d) else 1
+        if x.shape[d] % n:
+            out = [Replicate() if p == Shard(d) else p for p in out]
+    return x.redistribute(mesh, out)
 
 
 def constrain_like(x, ref):
@@ -158,6 +168,115 @@ def pin(x):
     if abstract_mesh() is None or not _is_dtensor(x):
         return x
     return _Pin.apply(x)
+
+
+class _DenseGrad(torch.autograd.Function):
+    """``x`` itself, forward; backward, its gradient made contiguous.  A
+    DTensor's ``to_local`` takes its gradient back under the forward's
+    global strides, which a transposed local gradient would belie."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _shard(t, mesh, placements):
+    """This rank's local tensor of ``t`` laid out as ``placements`` (a
+    plain tensor counts as replicated), its gradient made contiguous."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not _is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return _DenseGrad.apply(t.redistribute(mesh, placements).to_local())
+
+
+def local_map(fn, args, keep, out_keep):
+    """``fn(*args)`` on each rank's own shards: a ``vmap`` over dimensions
+    that ``fn`` treats row by row (a batch, attention's heads), as GSPMD
+    runs such a function on the local shards of a sharded ``vmap``.
+
+    ``keep[i]`` lists, in one logical order shared by every argument
+    (batch first, then heads), the dimensions of each tensor of
+    ``args[i]`` (a tensor or a tree of them) that may stay sharded;
+    ``out_keep`` does so for every tensor of ``fn``'s outputs.  With a
+    DTensor among ``args`` (inside a ``mesh_context``), the first
+    DTensor's placements on its ``keep`` dimensions are the layout: each
+    tensor argument is laid out so (a plain tensor counts as replicated;
+    any other dimension is gathered, a partial sum reduced), ``fn`` runs
+    on the local tensors, and its tensors come back, contiguous, as
+    DTensors of that layout.  Otherwise it is ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils._pytree import tree_leaves, tree_map
+    lead = next(((t, dims) for a, dims in zip(args, keep)
+                 for t in tree_leaves(a) if _is_dtensor(t)), None)
+    if abstract_mesh() is None or lead is None:
+        return fn(*args)
+    mesh = lead[0].device_mesh
+    lead_dims = list(lead[1])
+    logical = [lead_dims.index(p.dim)
+               if isinstance(p, Shard) and p.dim in lead_dims else None
+               for p in lead[0].placements]
+
+    def layout(dims):
+        return [Shard(dims[j]) if j is not None and j < len(dims)
+                else Replicate() for j in logical]
+
+    out = fn(*(tree_map(lambda t: _shard(t, mesh, layout(dims))
+                        if isinstance(t, torch.Tensor) else t, a)
+               for a, dims in zip(args, keep)))
+    # contiguous: a DTensor's later views act on its local tensor
+    return tree_map(lambda t: DTensor.from_local(
+        t.contiguous(), mesh, layout(out_keep), run_check=False)
+        if isinstance(t, torch.Tensor) else t, out)
+
+
+def einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` of two operands; of a mesh's DTensors,
+    each rank's product of its own shards, as GSPMD partitions a dot:
+    on each mesh dimension, an index sharded in one operand is sharded
+    the same way in the other where that one has it (its local chunk of
+    a replicated operand; one of two different shards is gathered), and
+    the product is sharded there, or a partial sum where the index is
+    summed.  DTensor's own rule flattens batch indices, or views a local
+    tensor laid out otherwise than its global one, and refuses some of
+    these layouts."""
+    if not (_is_dtensor(a) or _is_dtensor(b)) or abstract_mesh() is None:
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ins, out = eq.split("->")
+    sa, sb = ins.split(",")
+    mesh = (a if _is_dtensor(a) else b).device_mesh
+
+    def placed(t):
+        if not _is_dtensor(t):
+            return [Replicate()] * mesh.ndim
+        return [Replicate() if p.is_partial() else p for p in t.placements]
+
+    pa, pb, po = placed(a), placed(b), []
+    for m in range(mesh.ndim):
+        la = sa[pa[m].dim] if isinstance(pa[m], Shard) else None
+        lb = sb[pb[m].dim] if isinstance(pb[m], Shard) else None
+        if la and lb and la != lb:
+            pb[m], lb = Replicate(), None
+        if la and not lb and la in sb:
+            pb[m], lb = Shard(sb.index(la)), la
+        if lb and not la and lb in sa:
+            pa[m], la = Shard(sa.index(lb)), lb
+        idx = la or lb
+        po.append(Replicate() if idx is None
+                  else Shard(out.index(idx)) if idx in out else Partial())
+
+    y = torch.einsum(eq, _shard(a, mesh, pa), _shard(b, mesh, pb))
+    size = {**dict(zip(sa, a.shape)), **dict(zip(sb, b.shape))}
+    shape = torch.Size(size[i] for i in out)
+    return DTensor.from_local(y.contiguous(), mesh, po, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def _is_dtensor(x) -> bool:
