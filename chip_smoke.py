@@ -78,6 +78,12 @@ every kernel launch counted from 0 just before and read just after:
   unhooked and under ``repro_torch.hooks``' handlers (the
   ``torch.distributed`` interceptor, a dispatch mode), with its site
   census and the completeness check against the backend's own record.
+* The examples: the JAX package's ``examples/`` as the port's
+  ``repro_torch.examples`` on the card — the quickstart (Table 3, the
+  rewrite report, Figure 4's C3) through the megastep kernel, serve_demo
+  over SMOKE qwen3-1.7b, recurrentgemma-2b and xlstm-350m through the
+  model kernels, hooked_training's DDP step on a one-rank NCCL world —
+  and ``core.fleet_step_traced``, the one-step API.
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
@@ -257,7 +263,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     of every arm; then 5 steps each, unhooked and traced, in turns from
     one state: the hook's µs an intercepted call and an operator
     dispatched through it, from the medians;
-27. ``dryrun``: first, here with no process group, the ``train_full``
+27. ``examples``: the quickstart's text equal to the JAX example's
+    (``QUICKSTART_TEXT``), the megastep kernel launched; serve_demo for
+    each arch of ``EXAMPLE_SERVE``, each kernel on its path launched and
+    the others not, its run teacher-forced through the kernels (every
+    call held to its plain version) and through their plain versions
+    (relative L2 within 2e-2, tokens equal outside near-ties);
+    hooked_training's census equal to the JAX package's
+    (``HOOKED_CENSUS``: 17 sites), no model kernel launched, and against
+    the same run on the CPU its learning rates equal, its three losses
+    within 2e-3 relative, the norm of its parameters' change within 2e-4
+    and its final parameters within 0.2 of that change; then
+    ``fleet_step_traced`` 100 steps on 3 lanes on the card and on the
+    CPU, every leaf equal at every step, ``fleet_step`` equal to it;
+28. ``dryrun``: first, here with no process group, the ``train_full``
     cell's step on real tensors under ``opanalysis.analyze``, then three
     steps timed alone (nothing else running on the host) with
     ``max_memory_allocated``; then ``python -m repro_torch.launch.dryrun``
@@ -277,9 +296,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     real, no collective, the predicted peak bytes beside
     ``max_memory_allocated`` and the median step beside the roofline
     bound (H100 datasheet figures);
-28. the kernel table line (the megastep's launches on every path, the
-    attention kernels at every family's shapes), the card line, then the
-    device line (last).
+29. the kernel table line (the megastep's launches on every path, the
+    attention kernels at every family's shapes, each kernel's launches in
+    the examples), the card line, then the device line (last).
 
 Needs one card; with none it exits with code 2 and prints no result.
 """
@@ -308,8 +327,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import (  # noqa: E402
-    FleetImageTable, HookConfig, Mechanism, fleet, initial_state, interop,
-    pack_fleet, precompile_compact, prepare, programs, run_fleet_prepared,
+    FleetImageTable, HookConfig, Mechanism, fleet, fleet_step,
+    fleet_step_traced, initial_state, interop, pack_fleet,
+    precompile_compact, prepare, programs, run_fleet_prepared,
     run_fleet_span, run_prepared, run_with_c3)
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.core import costmodel as cm  # noqa: E402
@@ -321,6 +341,9 @@ from repro_torch.configs import (  # noqa: E402
     RunConfig, ShapeConfig, get_config, get_smoke)
 from repro_torch.data.pipeline import TokenStream  # noqa: E402
 from repro_torch.emul import state as emul_state  # noqa: E402
+from repro_torch.examples import hooked_training as ex_hooked  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import serve_demo as ex_serve  # noqa: E402
 from repro_torch.hooks import (  # noqa: E402
     CastCompressHandler, RSAGHandler, TraceHandler,
     backend_collective_census, census_fn, completeness_report, hooking)
@@ -445,6 +468,31 @@ CHURN_EXPECTED = {
 TABLE3_CYCLES = {"ld_preload": 18.0, "asc": 105.0, "signal": 2812.0,
                  "ptrace": 5940.0}
 N_HI, N_LO = 400, 200  # benchmarks/hook_overhead.py's differential
+# examples/quickstart.py's text (the JAX package's, run on the CPU): the
+# port's example prints it on the card
+QUICKSTART_TEXT = "\n".join([
+    '=== Table 3: hooking a virtualised getpid ===',
+    '  ld_preload       11.0 ns/call  pid=7777 hooks=100',
+    '  asc              42.4 ns/call  pid=7777 hooks=101',
+    '  signal         1017.6 ns/call  pid=7777 hooks=101',
+    '  ptrace         2145.9 ns/call  pid=7777 hooks=101',
+    '',
+    "=== ASC-Hook rewrite report (the paper's §3.1) ===",
+    "  {'svc_total': 8, 'r1': 6, 'r2': 0, 'r3': 2, 'l1_slots': 6, 'trampoline_bytes': 440}",
+    '  svc@0x18004 libc.so+0x4 nr=172 -> pair',
+    '  svc@0x18018 libc.so+0x18 nr=63 -> pair',
+    '  svc@0x18028 libc.so+0x28 nr=64 -> pair',
+    '  svc@0x18034 libc.so+0x34 nr=56 -> pair',
+    '  svc@0x18040 libc.so+0x40 nr=57 -> pair',
+    '  svc@0x1804c libc.so+0x4c nr=93 -> pair',
+    '  svc@0x18054 libc.so+0x54 nr=-1 -> no_x8',
+    '  svc@0x18060 libc.so+0x60 nr=172 -> jump_between',
+    '',
+    '=== Figure 4: indirect jump onto an svc (strategy C3) ===',
+    '  executions: 2 (fault -> config -> re-exec)',
+    '  pinned: libc.so+0x4 syscall=172',
+    '  final pid: 7777 (virtualised: 7777)',
+])
 
 # -- the fleet server (serve/fleet_server.py) --------------------------------
 # The census served through a 128-lane pool (the admission phase's width),
@@ -3828,6 +3876,213 @@ def collective_hooks_phase(dev, card) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+
+# -- the examples (repro_torch.examples: the JAX package's examples/) ---------
+# serve_demo on the card for each arch, and the kernels its path launches
+# there (the others must launch 0 times); hooked_training's census of the
+# DDP step: the JAX package's census_fn of its own (SMOKE qwen3-1.7b, batch
+# 4 x 64; JAX_PLATFORMS=cpu, examples/hooked_training.py's step)
+EXAMPLE_SERVE = {"qwen3-1.7b": ("flash", "decode"),
+                 "recurrentgemma-2b": ("flash", "rglru"),
+                 "xlstm-350m": ("mlstm",)}
+EXAMPLE_NEW = 12
+EXAMPLE_STEPS = 3
+HOOKED_CENSUS = {"total_sites": 17, "by_primitive": {"psum": 17},
+                 "payload_bytes_per_step": 362_000}
+# hooked_training on the card against the same run on the CPU, each bound
+# about ten times the gap measured on an H100 80GB HBM3 (700 W): the
+# losses (1.24e-4 relative at step 2), the norm of the parameters' change
+# over the run (1.6e-5 relative) and the distance between the two runs'
+# final parameters over that change (1.84e-2; a run whose steps change
+# nothing is at 1)
+HOOKED_LOSS_TOL = 2e-3
+HOOKED_UPDATE_TOL = 2e-4
+HOOKED_PARAMS_TOL = 0.2
+# core.fleet_step_traced on the card against the CPU: three lanes of
+# mixed programs (tests/test_torch_surface.py's), one halting on the way
+FLEET_STEP_STEPS = 100
+
+
+def example_lanes():
+    return [prepare(programs.getpid_loop(5), Mechanism.NONE),
+            prepare(programs.read_loop(4, 256), Mechanism.SIGNAL,
+                    virtualize=True),
+            prepare(programs.mixed_ops(3, 128), Mechanism.PTRACE)]
+
+
+def on_host(tree):
+    """A named tuple of tensors, each copied to the host."""
+    return type(tree)(*(x.cpu() for x in tree))
+
+
+def fleet_step_check(dev) -> dict:
+    """``core.fleet_step_traced`` (the eager step, not the kernel) stepped
+    FLEET_STEP_STEPS times on the card and on the CPU from the same packed
+    carry: every MachineState and TraceState leaf equal at every step, and
+    the untraced ``fleet_step`` equal to the traced state (all-ALLOW)."""
+    pps = example_lanes()
+    carries = {d: pack_fleet(pps, trace=True, device=d)
+               for d in (dev, "cpu")}
+    imgs, ids, s, tr = carries[dev]
+    _, _, s_c, tr_c = carries["cpu"]
+    imgs_c, ids_c = carries["cpu"][:2]
+    plain = clone(s)
+    t0 = time.perf_counter()
+    for i in range(FLEET_STEP_STEPS):
+        s, tr = fleet_step_traced(imgs, ids, s, tr)
+        plain = fleet_step(imgs, ids, plain)
+        s_c, tr_c = fleet_step_traced(imgs_c, ids_c, s_c, tr_c)
+        bad = (mismatched(on_host(s), s_c) + mismatched(on_host(tr), tr_c)
+               + mismatched(plain, s))
+        if bad:
+            raise AssertionError(f"fleet_step_traced on the card != on the "
+                                 f"CPU at step {i}: {bad}")
+    torch.cuda.synchronize()
+    records = tr.count.cpu().tolist()
+    if min(records) < 4 or int(s.halted[0]) == 0:
+        raise AssertionError(f"fleet_step lanes: records {records}, "
+                             f"halted {s.halted.tolist()}")
+    return {"steps": FLEET_STEP_STEPS, "lanes": len(pps),
+            "records": records, "icount": s.icount.cpu().tolist(),
+            "mismatched_leaves": 0, "s": time.perf_counter() - t0}
+
+
+def serve_example(arch, dev) -> dict:
+    """``serve_demo`` on the card: its tokens; the kernels on its path each
+    launched (counted from 0 around ``generate``), the others not; the run
+    teacher-forced through the kernels (each attention, scan and mLSTM call
+    held to its plain version on the same inputs) and through their plain
+    versions, held as ``serve`` holds them."""
+    engine, reqs = ex_serve.demo_engine(arch, EXAMPLE_NEW, dev)
+    cfg, run, params = engine.cfg, engine.run, engine.params
+    counted = {"flash": fops.flash_attention, "decode": dops.decode_attention,
+               "rglru": rops.rglru_scan, "mlstm": xops.mlstm_chunk}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    on_path = EXAMPLE_SERVE[arch]
+    if any((n > 0) != (k in on_path) for k, n in launches.items()):
+        raise AssertionError(f"serve_demo {arch}: launches {launches}, "
+                             f"expected on {on_path} only")
+    lines = ex_serve.demo_lines(reqs, outs)
+    tokens = np.stack([o.tokens for o in outs])
+    if tokens.shape != (len(reqs), EXAMPLE_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise AssertionError(f"serve_demo {arch}: tokens {tokens.shape}")
+    toks, plen = engine._pad_batch(reqs)
+    fed = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    acheck, scheck, mcheck = AttentionCheck(), ScanCheck(), MlstmCheck()
+    lk, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              attention=acheck, scan=scheck, mlstm=mcheck)
+    lp, _, _ = teacher_forced(cfg, run, params, toks, plen, fed,
+                              attention=plain_attention, scan=rglru_scan_seq,
+                              mlstm=plain_mlstm)
+    agree, n_over, worst, rel = compare_routes(lk, lp, tokens, cfg.vocab)
+    if acheck.over or scheck.over or scheck.unequal or mcheck.over:
+        raise AssertionError(f"serve_demo {arch}: a kernel call off its "
+                             f"plain version (attention {acheck.over}, scan "
+                             f"{scheck.over}/{scheck.unequal}, mlstm "
+                             f"{mcheck.over})")
+    return {"lines": lines, "launches": launches, "generate_s": gen_s,
+            "tokens_agreeing": agree, "logits_over_bound": n_over,
+            "max_logit_diff": worst, "rel_l2": rel,
+            "checked_calls": {"attention": acheck.calls,
+                              "rglru": scheck.calls, "mlstm": mcheck.calls},
+            "max_abs_err": {"attention": acheck.max_err,
+                            "rglru": scheck.max_err, "mlstm": mcheck.max_err}}
+
+
+def examples_phase(dev, card) -> tuple:
+    """The port's three examples through their functions, on the card:
+    the quickstart's text against the JAX example's (``QUICKSTART_TEXT``)
+    with the megastep kernel's launches counted; serve_demo for each arch
+    of ``EXAMPLE_SERVE``; hooked_training's census against
+    ``HOOKED_CENSUS``, no model kernel launched, and its run against the
+    same run on the CPU (gloo): learning rates equal, losses, the norm of
+    the parameters' change and the final parameters within the
+    ``HOOKED_*_TOL`` bounds; then ``fleet_step_traced`` on the card
+    against the CPU.  Returns (line, launches by kernel)."""
+    t0 = time.perf_counter()
+    mops.megastep_chunk.launches = 0
+    text = ex_quickstart.quickstart(dev)
+    torch.cuda.synchronize()
+    qs_launches = mops.megastep_chunk.launches
+    if text != QUICKSTART_TEXT:
+        diff = [(a, b) for a, b in zip(text.splitlines(),
+                                       QUICKSTART_TEXT.splitlines()) if a != b]
+        raise AssertionError(f"quickstart text != the JAX example's: {diff}")
+    if not qs_launches:
+        raise AssertionError("the quickstart launched no megastep kernel")
+    qs_s = time.perf_counter() - t0
+
+    serve, launches = {}, collections.Counter({"megastep": qs_launches})
+    for arch in EXAMPLE_SERVE:
+        serve[arch] = serve_example(arch, dev)
+        launches.update(serve[arch]["launches"])
+        gc.collect()
+
+    counted = {"flash": fops.flash_attention, "decode": dops.decode_attention,
+               "rglru": rops.rglru_scan, "mlstm": xops.mlstm_chunk}
+    for fn in counted.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    card_run = ex_hooked.hooked_training(EXAMPLE_STEPS, device=dev)
+    torch.cuda.synchronize()
+    hooked_s = time.perf_counter() - t1
+    model_launches = {k: fn.launches for k, fn in counted.items()}
+    cpu_run = ex_hooked.hooked_training(EXAMPLE_STEPS, device="cpu")
+    cen = {k: card_run.census[k] for k in HOOKED_CENSUS}
+    if cen != HOOKED_CENSUS:
+        raise AssertionError(f"hooked_training census {cen} != "
+                             f"{HOOKED_CENSUS}")
+    if any(model_launches.values()):
+        raise AssertionError(f"training launched model kernels "
+                             f"{model_launches}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_run.losses,
+                                               cpu_run.losses)]
+    if not all(map(math.isfinite, card_run.losses)) or max(rel) > \
+            HOOKED_LOSS_TOL:
+        raise AssertionError(f"hooked_training losses {card_run.losses} vs "
+                             f"the CPU's {cpu_run.losses}")
+    if card_run.lrs != cpu_run.lrs:
+        raise AssertionError(f"hooked_training learning rates "
+                             f"{card_run.lrs} vs the CPU's {cpu_run.lrs}")
+    moved = cpu_run.update_norm
+    update_rel = abs(card_run.update_norm - moved) / moved
+    apart = sum(float((a.cpu().double() - b.double()).pow(2).sum())
+                for a, b in zip(lm.tree_leaves(card_run.params),
+                                lm.tree_leaves(cpu_run.params))) ** 0.5
+    if not moved > 0 or update_rel > HOOKED_UPDATE_TOL \
+            or apart / moved > HOOKED_PARAMS_TOL:
+        raise AssertionError(
+            f"hooked_training's parameters: moved {card_run.update_norm} "
+            f"on the card, {moved} on the CPU; the two runs {apart} apart")
+
+    fs = fleet_step_check(dev)
+    line = {"phase": "examples", "card": card,
+            "quickstart": {"lines": len(text.splitlines()),
+                           "equal_to_jax_text": True,
+                           "megastep_launches": qs_launches, "s": qs_s},
+            "serve_demo": serve,
+            "hooked_training": {**cen, "lines": card_run.lines,
+                                "losses": card_run.losses,
+                                "cpu_losses": cpu_run.losses,
+                                "max_rel_vs_cpu": max(rel),
+                                "lrs": card_run.lrs,
+                                "update_norm": card_run.update_norm,
+                                "cpu_update_norm": moved,
+                                "update_norm_rel_vs_cpu": update_rel,
+                                "params_apart_over_update": apart / moved,
+                                "model_kernel_launches": model_launches,
+                                "s": hooked_s},
+            "fleet_step_traced": fs,
+            "seconds": time.perf_counter() - t0}
+    return line, dict(launches)
+
 # -- the multi-pod dry run (the JAX package's launch/dryrun.py) ---------------
 # (a) full-width cells traced on fake 256- and 512-rank worlds, one process a
 # cell (a fake world must not share a process with a real one); (b) the
@@ -4485,13 +4740,18 @@ def main(argv=None) -> int:
     emit({**collective_hooks_phase(dev, card),
           "script_s": time.perf_counter() - t_script})
 
-    # 27. the multi-pod dry run: full-width cells on fake 256- and
+    # 27. the examples: quickstart, serve_demo and hooked_training through
+    #     the port's entry points on the card; fleet_step_traced
+    line, launches_ex = examples_phase(dev, card)
+    emit({**line, "script_s": time.perf_counter() - t_script})
+
+    # 28. the multi-pod dry run: full-width cells on fake 256- and
     #     512-rank worlds, and the train_full cell's prediction against
     #     the card
     for line in dryrun_phase(dev, card):
         emit({**line, "script_s": time.perf_counter() - t_script})
 
-    # 28. the kernel table, the card, and the device line (last)
+    # 29. the kernel table, the card, and the device line (last)
     attn_src = {
         "flash": ("flash_attention",
                   "src/repro_torch/kernels/flash_attention/csrc/"
@@ -4534,7 +4794,8 @@ def main(argv=None) -> int:
                               "durable_server": launches_dur["durable"]
                               + launches_dur["kill_recover"]
                               + launches_dur["chaos_soak"],
-                              "shard": sum(launches_shard.values())}},
+                              "shard": sum(launches_shard.values()),
+                              "examples": launches_ex["megastep"]}},
         {"name": "megastep_chunk K2 (traced, policy gate)", **common,
          "launches": launches_k2, "max_abs_err": err_by["K2"],
          "ms": kernel_ms_k2, "plain_ms": plain_ms_k2, "bound_ms": bound_k2,
@@ -4552,12 +4813,14 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
-         "max_abs_err": err_by["flash"], **attn_rows["flash"]},
+         "max_abs_err": err_by["flash"], **attn_rows["flash"],
+         "examples_launches": launches_ex.get("flash", 0)},
         {"name": "decode_attention (qwen3-1.7b decode)", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attention/csrc/"
                    "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:58",
-         "max_abs_err": err_by["decode"], **attn_rows["decode"]},
+         "max_abs_err": err_by["decode"], **attn_rows["decode"],
+         "examples_launches": launches_ex.get("decode", 0)},
         {"name": "flash_attention (recurrentgemma-2b prefill, window 2048)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -4571,13 +4834,15 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:40",
          "max_abs_err": max(err_by["rglru"],
                             serve_rg["scan_max_abs_err_vs_associative"]),
-         **rg_rows["rglru"]},
+         **rg_rows["rglru"],
+         "examples_launches": launches_ex.get("rglru", 0)},
         {"name": "mlstm_chunk (xlstm-350m, prefill and decode)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
          "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:69",
          "max_abs_err": max(err_by["mlstm"], serve_xl["mlstm_max_abs_err"]),
-         **xl_rows["mlstm"]}] + family_table})
+         **xl_rows["mlstm"],
+         "examples_launches": launches_ex.get("mlstm", 0)}] + family_table})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

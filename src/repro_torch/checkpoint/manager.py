@@ -14,7 +14,8 @@ Fault-tolerance posture:
   * ``restore_latest`` verifies the manifest hash before trusting arrays,
     and falls back past corrupt steps to the newest valid one;
   * ``restore_latest(like=tree)`` puts fresh tensors on the devices of
-    ``like``'s leaves;
+    ``like``'s leaves, or, with ``sharding_tree=``, lays them out on a
+    mesh's placements as DTensors;
   * ``AsyncWriter`` moves serialisation off the caller's thread.
 
 Trees are nested dicts, lists, tuples and named tuples of tensors, numpy
@@ -69,8 +70,34 @@ def _leaves_with_paths(tree: Tree, path: str = ""):
 
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):  # a DTensor: the whole array
+            leaf = leaf.full_tensor()
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
+
+
+def _shardings_like(like: Tree, tree: Tree) -> list:
+    """The leaves of ``tree``, a tree of ``like``'s structure whose leaves
+    are ``(DeviceMesh, placements)`` pairs or None, in the order of
+    ``like``'s leaves; a None in place of a subtree is None for all of
+    its leaves."""
+    if like is None:
+        return []
+    kids = _children(like)
+    if kids is None:
+        return [tree]
+    out = []
+    for i, (part, child) in enumerate(kids):
+        if tree is None:
+            sub = None
+        elif isinstance(like, dict):
+            sub = tree[part]
+        elif hasattr(like, "_fields"):
+            sub = getattr(tree, part[1:])
+        else:
+            sub = tree[i]
+        out += _shardings_like(child, sub)
+    return out
 
 
 def _flatten_with_paths(tree: Tree) -> List[Tuple[str, np.ndarray]]:
@@ -180,7 +207,8 @@ class CheckpointManager:
                 steps.insert(0, head)
         return steps
 
-    def restore_latest(self, like: Optional[Tree] = None
+    def restore_latest(self, like: Optional[Tree] = None, *,
+                       sharding_tree: Optional[Tree] = None
                        ) -> Optional[Tuple[int, Tree, Dict[str, Any]]]:
         """Restore the newest valid checkpoint.
 
@@ -195,6 +223,13 @@ class CheckpointManager:
         a ``like`` tree the result has its structure, each leaf a fresh
         tensor of the ``like`` leaf's dtype on its device (a CPU tensor
         where the ``like`` leaf is not a tensor).
+
+        ``sharding_tree`` (a tree of ``like``'s structure, each leaf a
+        ``(DeviceMesh, placements)`` pair or None) lays each restored leaf
+        out on its mesh: a ``DTensor`` with those placements, distributed
+        from the host array (the JAX manager's ``device_put`` onto named
+        shardings); a None leaf is restored as without it.  Every rank of
+        the mesh calls this on the same directory.
         """
         candidates = self._candidates()
         if not candidates:
@@ -215,11 +250,21 @@ class CheckpointManager:
             flat_like = list(_leaves_with_paths(like))
             assert [k for k, _ in flat_like] == manifest["keys"], \
                 "checkpoint/model structure mismatch"
+            shardings = (_shardings_like(like, sharding_tree)
+                         if sharding_tree is not None
+                         else [None] * len(flat_like))
             leaves = []
-            for k, ref in flat_like:
+            for (k, ref), sh in zip(flat_like, shardings):
                 t = torch.from_numpy(np.array(arrays[k], copy=True))
                 if isinstance(ref, torch.Tensor):
-                    t = t.to(device=ref.device, dtype=ref.dtype)
+                    t = t.to(dtype=ref.dtype)
+                if sh is not None:
+                    from torch.distributed.tensor import distribute_tensor
+                    mesh, placements = sh
+                    t = distribute_tensor(t.to(mesh.device_type), mesh,
+                                          list(placements))
+                elif isinstance(ref, torch.Tensor):
+                    t = t.to(device=ref.device)
                 leaves.append(t)
             state = _unflatten(like, iter(leaves))
             return manifest["step"], state, manifest.get("extra", {})

@@ -11,7 +11,8 @@ from . import costmodel, fleet, isa, layout, programs
 from .completeness import (C3Event, diagnose_c3, diagnose_c3_fleet,
                            run_with_c3)
 from .fleet import (FleetImages, TraceState, admit_lanes, choose_bucket,
-                    compact_ladder, fleet_counters, fleet_summary,
+                    compact_ladder, fleet_counters, fleet_step,
+                    fleet_step_traced, fleet_summary,
                     make_halted_states, pack_images, precompile_ladder,
                     restore_lanes, run_fleet, run_fleet_compact,
                     run_fleet_span, run_fleet_stream, set_image_row,
@@ -38,7 +39,8 @@ __all__ = [
     "RewriteReport", "SvcSite", "TraceState", "admit_lanes",
     "build_minilibc", "build_process", "census", "choose_bucket",
     "compact_ladder", "costmodel", "decode_image", "diagnose_c3",
-    "diagnose_c3_fleet", "fleet", "fleet_counters", "fleet_summary",
+    "diagnose_c3_fleet", "fleet", "fleet_counters", "fleet_step",
+    "fleet_step_traced", "fleet_summary",
     "fleet_trace", "hook_invocations", "initial_state", "isa", "layout",
     "make_halted_states", "make_state", "mem_read", "mem_read_block",
     "mem_write", "pack_fleet", "pack_images", "precompile_compact",

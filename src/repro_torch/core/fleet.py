@@ -196,7 +196,11 @@ def _widx_v(addr):
     return ((addr - L.DATA_BASE) >> 3).clamp(0, L.MEM_WORDS - 1)
 
 
-_select = emul_engine.select  # jnp.select: the FIRST true condition wins
+def _select(pairs, default):
+    """``jnp.select``: the FIRST true condition wins (a call, not an alias
+    bound at import: ``repro_torch.emul`` imports ``core`` while its
+    engine is still loading)."""
+    return emul_engine.select(pairs, default)
 
 
 def _fetch(img: FleetImages, ids: torch.Tensor, pc0: torch.Tensor):
@@ -679,6 +683,31 @@ def _step_core(img: FleetImages, ids: torch.Tensor, s: MachineState,
     out-of-fuel lanes): fetch/decode, then the spec-generated executor
     body.  Returns ``(state, trace)``, as the JAX package's does."""
     return exec_lanes(_fetch(img, ids, s.pc), s, tr)
+
+
+def fleet_step(img: FleetImages, ids: torch.Tensor,
+               s: MachineState) -> MachineState:
+    """One masked step for every lane, on the device of the tensors it is
+    given.  ``img`` leaves are [G, CODE_WORDS], ``ids`` is the per-lane
+    image index [B] (int32), state leaves are [B, ...].
+
+    Bit-identical per lane to :func:`machine.step` applied to live lanes
+    and the identity on halted and out-of-fuel lanes, and to the JAX
+    package's ``fleet_step``.  It is the eager step, not the megastep
+    kernel: the drivers (:func:`run_fleet`) run chunks of steps in the
+    kernel on the card.  ``s.mem`` and ``s.k_ino_data`` are updated in
+    place and shared with the result (:func:`exec_lanes`)."""
+    return _step_core(img, ids, s)[0]
+
+
+def fleet_step_traced(img: FleetImages, ids: torch.Tensor, s: MachineState,
+                      tr: TraceState):
+    """:func:`fleet_step` plus the syscall ring and policy carry: one
+    record appended per executed svc, the per-lane policy tables applied.
+    Returns ``(state, trace)``; ``tr.buf`` and ``tr.hist`` are updated in
+    place.  Under the default all-ALLOW policy the returned machine state
+    equals the untraced step's bit for bit."""
+    return _step_core(img, ids, s, tr)
 
 
 # ---------------------------------------------------------------------------

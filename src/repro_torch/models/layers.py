@@ -73,6 +73,27 @@ def xla_route(on: bool = True):
         _ROUTE.on = prev
 
 
+def head_layouts_active() -> bool:
+    """Whether q, k and v come in the layouts the lever forces in this
+    thread (:func:`head_layouts`)."""
+    return getattr(_ROUTE, "heads", False)
+
+
+@contextlib.contextmanager
+def head_layouts(on: bool = True):
+    """Inside the block, q, k and v reach :func:`attention` in the head
+    layouts ``run.attn_act_constraints`` forces (``on``): the plain form
+    then lays q out as K/V and takes the products of head_dim shards
+    (:func:`attention_plain`).  Outside it the layouts are whatever the
+    projections give, and the plain form leaves them alone."""
+    prev = head_layouts_active()
+    _ROUTE.heads = on
+    try:
+        yield
+    finally:
+        _ROUTE.heads = prev
+
+
 class _Recompute:
     """:func:`checkpoint`'s recompute context: ``inner`` and the route of
     the first run, entered afresh at every recompute.  Re-enterable, a
@@ -180,8 +201,10 @@ def act_fn(name: str):
 # ---------------------------------------------------------------------------
 
 def rope_freqs(hd: int, theta: float, device=None):
-    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
-                                         device=device) / hd))
+    e = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    if numerics.exact_forms(e):
+        return numerics.power(theta, -e)  # XLA folds 1 / a ** b to a ** -b
+    return 1.0 / (theta ** e)
 
 
 def apply_rope(x, positions, theta: float):
@@ -189,10 +212,15 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
     angles = positions[..., None].float() * freqs  # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos = numerics.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = numerics.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if numerics.exact_forms(x):
+        # XLA's CPU contraction: each rotation's first product is fused
+        out = torch.cat([numerics.fma(x1, cos, -(x2 * sin)),
+                         numerics.fma(x2, cos, x1 * sin)], dim=-1)
+    else:
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
@@ -223,24 +251,37 @@ def per_head(fn, q, k, v, mask):
                               (0, 2))
 
 
-def _sdpa(q, k, v, mask, scale: float):
+def head_dim_sharded(q, k) -> bool:
+    """Whether q and k are a mesh's DTensors both sharded along head_dim
+    (their last dimension, which the logits sum over) on one mesh
+    dimension: the layout :func:`head_layouts` forces where the heads do
+    not divide the model axis."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor)):
+        return False
+    return any(a == Shard(q.ndim - 1) and b == Shard(k.ndim - 1)
+               for a, b in zip(q.placements, k.placements))
+
+
+def _sdpa(q, k, v, mask, scale: float, einsum=torch.einsum):
     """q: (B, Sq, Hkv, G, hd); k/v: (B, Skv, Hkv, hd); mask: (B, Sq, Skv).
 
     GQA convention throughout the framework: query head hq = hkv * G + g.
     Both products take their operands in the input dtype and accumulate
     in f32 (the JAX einsums' ``preferred_element_type`` and bf16 dot);
-    each rank's own heads on a mesh (:func:`per_head`)."""
-    return per_head(functools.partial(_sdpa_rows, scale=scale), q, k, v,
-                    mask)
+    each rank's own heads on a mesh (:func:`per_head`), each product
+    through ``einsum``."""
+    return per_head(functools.partial(_sdpa_rows, scale=scale,
+                                      einsum=einsum), q, k, v, mask)
 
 
-def _sdpa_rows(q, k, v, mask, scale: float):
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+def _sdpa_rows(q, k, v, mask, scale: float, einsum=torch.einsum):
+    logits = einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
     # a Python scalar: a scalar tensor made on the card is a host copy
     # that waits for the device
     logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
+    out = einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
     return out.to(v.dtype)
 
 
@@ -251,6 +292,19 @@ def attention_plain(q, k, v, *, causal: bool, window: int = 0,
     over queries when ``chunk`` divides Sq and Sq > chunk; with
     ``chunk_remat`` each chunk is checkpointed, so its backward keeps one
     chunk's probabilities at a time and recomputes them)."""
+    ein = torch.einsum
+    if head_layouts_active():
+        if getattr(q, "placements", None) != getattr(k, "placements", None):
+            # q's heads over the model axis, K/V's head_dim: its heads
+            # split into (kv head, group) evenly only in K/V's layout,
+            # where GSPMD reshards
+            q = sharding.constrain_like(q, k)
+        if head_dim_sharded(q, k):
+            # the products of each rank's shards (the logits a partial
+            # sum), as GSPMD partitions them: DTensor's own rule refuses
+            # the gradient of P V there
+            ein = sharding.einsum
+    sdpa_fn = functools.partial(_sdpa, einsum=ein)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -273,13 +327,13 @@ def attention_plain(q, k, v, *, causal: bool, window: int = 0,
     use_chunks = chunk and Sq > chunk and Sq % chunk == 0
     if not use_chunks:
         q_positions = q_offset + torch.arange(Sq, device=dev)
-        out = _sdpa(qg, k, v, mask_for(q_positions), scale)
+        out = sdpa_fn(qg, k, v, mask_for(q_positions), scale)
         return out.reshape(B, Sq, Hq, hd)
 
     def sdpa(*a):
         if chunk_remat and torch.is_grad_enabled():
-            return checkpoint(_sdpa, *a)
-        return _sdpa(*a)
+            return checkpoint(sdpa_fn, *a)
+        return sdpa_fn(*a)
 
     outs = []
     if window and window + chunk < Skv:

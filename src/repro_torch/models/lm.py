@@ -61,7 +61,9 @@ Layout points (``parallel.sharding.constrain``): on a mesh's DTensors
 (the dry run, ``launch.dryrun``) each redistributes to its spec; on any
 other tensor it is the tensor itself, so nothing here changes a plain
 tensor's arithmetic.  Where the JAX model has them: the embedding's
-output (data, None, None); the decode cache's K/V after the write; the
+output (data, None, None); q/k/v in their ``head_axes`` layouts before
+prefill and train attention under ``run.attn_act_constraints`` (off by
+default, as there); the decode cache's K/V after the write; the
 head's logits (data, None, model) in ``forward``, ``prefill`` and
 ``_ce_sums``; the sequence-sharded carry under ``run.seq_shard``
 (Megatron-SP), and — since DTensor, unlike GSPMD, lays out a gradient
@@ -112,8 +114,8 @@ from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (COMPUTE_DTYPE, NEG_INF, PARAM_DTYPE, apply_mlp,
                      attention, attn_out, attn_qkv, checkpoint, dense_init,
-                     dot, init_attn, init_mlp, per_head, rms_norm,
-                     split_heads, xla_route)
+                     dot, head_layouts, init_attn, init_mlp, per_head,
+                     rms_norm, split_heads, xla_route)
 
 Params = Dict[str, Any]
 
@@ -290,8 +292,17 @@ def _self_attention(cfg: ModelConfig, run: RunConfig, p: Params, h, *,
 
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     q, k, v = attn_qkv(cfg, p, h, positions[None].expand(B, S))
-    o = attention(q, k, v, causal=causal, window=window, chunk=run.attn_chunk,
-                  chunk_remat=run.attn_chunk_remat)
+    if run.attn_act_constraints:
+        # the JAX model's explicit head layouts (default off there too:
+        # propagation from the flat projections picks better GQA layouts)
+        h_ax, hd_ax = head_axes(cfg.n_heads, cfg.hd)
+        kvh_ax, kvhd_ax = head_axes(cfg.n_kv_heads, cfg.hd)
+        q = constrain(q, data_axes(), None, h_ax, hd_ax)
+        k = constrain(k, data_axes(), None, kvh_ax, kvhd_ax)
+        v = constrain(v, data_axes(), None, kvh_ax, kvhd_ax)
+    with head_layouts(run.attn_act_constraints):
+        o = attention(q, k, v, causal=causal, window=window,
+                      chunk=run.attn_chunk, chunk_remat=run.attn_chunk_remat)
     out = attn_out(cfg, p, o)
 
     new_cache = None

@@ -14,6 +14,9 @@ Its ``tanh`` is a rational function evaluated with fused multiply-adds
 (:func:`tanh`); its ``cumsum`` (a ``reduce-window`` that the CPU pipeline
 rewrites) sums in blocks of 16 (:func:`cumsum`); its dots and fused sums
 of products keep their own orders (:func:`einsum`, :func:`sum_product`).
+Its ``cos``, ``sin`` and ``pow`` are the C library's ``cosf``, ``sinf``
+and ``powf`` (:func:`cos`, :func:`sin`, :func:`power`: called on each
+distinct value), and it folds ``1 / a ** b`` into ``a ** -b``.
 One function cannot be reproduced: XLA's ``rsqrt`` refines the CPU's
 own hardware estimate with two Newton steps, so its last bit depends on
 the processor; :func:`rsqrt` rounds correctly, which agrees with it on
@@ -37,6 +40,7 @@ to bounds, not bits.  The forward bits do not change under autograd.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import numpy as np
@@ -260,6 +264,48 @@ _log1p_cpu = _unary("_Log1p", lambda x: _log1p_xla(x.float()).to(x.dtype),
                     lambda g, x, ans: g / (x + 1))
 _tanh_cpu = _unary("_Tanh", lambda x: _tanh_xla(x.float()).to(x.dtype),
                    lambda g, x, ans: (g + g * ans) * (1 - ans))
+_LIBM = []
+
+
+def _libm():
+    """The C library's math functions, loaded once."""
+    if not _LIBM:
+        import ctypes
+        import ctypes.util
+        lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+        for name, n in (("cosf", 1), ("sinf", 1), ("powf", 2)):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float] * n
+        _LIBM.append(lib)
+    return _LIBM[0]
+
+
+@functools.lru_cache(maxsize=64)
+def _libm_table(name: str, key: bytes, *first) -> np.ndarray:
+    """The C library's f32 ``name(*first, v)`` of each f32 v in ``key`` (a
+    rope's angles recur in every layer of a forward)."""
+    fn = getattr(_libm(), name)
+    return np.array([fn(*first, float(v))
+                     for v in np.frombuffer(key, np.float32)], np.float32)
+
+
+def _libm_f32(name: str, x, *first):
+    """The C library's f32 ``name(*first, v)`` of every element v of an
+    f32 ``x``, computed once for each distinct value; of a fake tensor
+    (the operator count, which reads no values), PyTorch's own."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if isinstance(x, FakeTensor):
+        return {"cosf": torch.cos, "sinf": torch.sin,
+                "powf": lambda t: first[0] ** t}[name](x)
+    vals, inv = torch.unique(x.detach(), return_inverse=True)
+    table = _libm_table(name, vals.numpy().tobytes(), *first)
+    return torch.from_numpy(table)[inv].to(x.dtype)
+
+
+_cos_cpu = _unary("_Cos", lambda x: _libm_f32("cosf", x),
+                  lambda g, x, ans: -g * torch.sin(x))
+_sin_cpu = _unary("_Sin", lambda x: _libm_f32("sinf", x),
+                  lambda g, x, ans: g * torch.cos(x))
 _sqrt_cpu = _unary("_Sqrt", lambda x: torch.sqrt(x.double()).to(x.dtype),
                    lambda g, x, ans: g * (0.5 / ans))
 _rsqrt_cpu = _unary("_Rsqrt", lambda x: torch.rsqrt(x.double()).to(x.dtype),
@@ -339,6 +385,32 @@ def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)``; VJP g * exp(x - ans)
     (``logaddexp``'s own rule)."""
     return _softplus(x)
+
+
+def cos(x):
+    """cos of an f32 tensor: on the CPU the C library's ``cosf``, which
+    XLA's CPU backend calls (PyTorch's vectorised cos differs in the last
+    bit of some results); VJP -g sin(x)."""
+    if not exact_forms(x):
+        return torch.cos(x)
+    return _cos_cpu(x)
+
+
+def sin(x):
+    """sin of an f32 tensor: on the CPU the C library's ``sinf``, as
+    :func:`cos`; VJP g cos(x)."""
+    if not exact_forms(x):
+        return torch.sin(x)
+    return _sin_cpu(x)
+
+
+def power(base: float, x):
+    """``base ** x`` for an f32 tensor ``x``: on the CPU the C library's
+    ``powf`` (XLA's CPU pow) of ``base`` rounded to f32; no gradient (the
+    rope's frequencies are constants)."""
+    if not exact_forms(x):
+        return base ** x
+    return _libm_f32("powf", x, float(np.float32(base)))
 
 
 def rsqrt(x):
