@@ -52,6 +52,7 @@ from .machine import (HALT_BADMEM, HALT_EXIT, HALT_FUEL, HALT_KILL,
                       HALT_SEGV, HALT_TRAP, RUNNING, SIGFRAME_WORDS,
                       DecodedImage, MachineState, _SIGFRAME_IDX,
                       resolve_device)
+from .. import obs
 from ..emul import engine as emul_engine
 from ..emul import state as emul_state
 from ..parallel import sharding as SH
@@ -768,7 +769,8 @@ def _drive(imgs, ids, states, trace, *, chunk: int, span=None, mesh=None):
     else:
         mops.lockstep([(imgs, ids, states, trace)], chunk=chunk, span=span)
     if span is None:
-        states.halted.copy_(_patch_fuel(states).halted)
+        with obs.span("fleet.patch_fuel"):
+            states.halted.copy_(_patch_fuel(states).halted)
     return states if trace is None else (states, trace)
 
 
@@ -810,15 +812,21 @@ def run_fleet(imgs, states, img_ids=None, *, chunk: int = DEFAULT_CHUNK,
     devices (:func:`sharding.fleet_devices`: every visible card, or the
     one ``device`` names) when their count divides the lane count, runs
     the slices in lockstep and gathers them into the carry; the result is
-    the same."""
+    the same.
+
+    While a profiler runs the run records the span ``fleet.run`` (count
+    ``chunks``) and its children (:mod:`repro_torch.obs`)."""
     _check_engine(engine, shard=shard)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids, device)
-    if trace is not None:
-        trace = traces_to(trace, states.pc.device)
-    return _drive(imgs, img_ids, states, trace, chunk=int(chunk),
-                  mesh=_mesh(shard, device))
+    with obs.span("fleet.run"):
+        with obs.span("fleet.inputs"):
+            imgs, img_ids, states = _fleet_inputs(imgs, states, img_ids,
+                                                  device)
+            if trace is not None:
+                trace = traces_to(trace, states.pc.device)
+        return _drive(imgs, img_ids, states, trace, chunk=int(chunk),
+                      mesh=_mesh(shard, device))
 
 
 def run_fleet_span(imgs, states, img_ids, *, steps: int,

@@ -54,11 +54,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from .. import obs
 
 
 class _Op(NamedTuple):
@@ -166,6 +169,9 @@ def _out_shape(kind: str, x: torch.Tensor, n: int, bound: dict) -> tuple:
     return (lead,) + tuple(x.shape[1:])
 
 
+_ns = time.perf_counter_ns
+
+
 class _Call:
     """One intercepted operator call, its schema arguments by name."""
 
@@ -179,6 +185,7 @@ class _Call:
         self.payload = tuple(payload) if self.listed else (payload,)
         self.group = _group(self.bound)
         self.work = None
+        self.op_ns = 0          # host time inside the native operator
         # the JAX primitive's name (None: a reduction JAX has no primitive
         # for, which runs natively)
         self.name = (_REDUCTIONS.get(_reduction(self.bound["reduce_op"]))
@@ -197,6 +204,15 @@ class _Call:
         n = self.group.size()
         return tuple((_out_shape(self.spec.kind, x, n, self.bound), x.dtype)
                      for x in self.payload)
+
+    def native(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, a run of the native operator, its host
+        time added to ``op_ns``."""
+        t0 = _ns()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.op_ns += _ns() - t0
 
     def _run(self, bound: dict):
         pos = []
@@ -239,7 +255,7 @@ class _Call:
                 shape = _out_shape(self.spec.kind, x, self.group.size(),
                                    bound)
                 bound[self.spec.out] = x.new_empty(shape)
-        outs = self._run(bound)
+        outs = self.native(self._run, bound)
         return outs if len(outs) > 1 else outs[0]
 
     def finish(self, outs):
@@ -264,26 +280,44 @@ class _Call:
 
 class _HookMode(TorchDispatchMode):
     """The trampoline: every operator of the program passes through; a
-    collective of this table goes to its handler."""
+    collective of this table goes to its handler.  A ``timed`` mode also
+    sums its own host time in ``self_ns``: the time inside
+    ``__torch_dispatch__`` before the operator it runs, and for a
+    collective the whole trampoline (its ``_Call``, the handler and the
+    checks and copies after it) less the native operator's own calls
+    (``_Call.op_ns``); after a plain operator the mode only returns."""
 
-    def __init__(self, handlers: Dict[str, Handler]):
+    def __init__(self, handlers: Dict[str, Handler], timed: bool = False):
         super().__init__()
         self.handlers = handlers
+        self.timed = timed
         self.dispatched = 0
+        self.self_ns = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        timed = self.timed
+        t0 = _ns() if timed else 0
         kwargs = kwargs or {}
         self.dispatched += 1
         spec = _OPS.get(func)
         if spec is None or _STATE.in_handler:
+            if timed:
+                self.self_ns += _ns() - t0
             return func(*args, **kwargs)
         call = _Call(func, spec, args, kwargs)
+        try:
+            return self._trampoline(call, args, kwargs)
+        finally:
+            if timed:
+                self.self_ns += _ns() - t0 - call.op_ns
+
+    def _trampoline(self, call: _Call, args, kwargs):
         handler = self.handlers.get(call.name) if call.name else None
         # the innermost hook decides: outer hooks see the native call
         _STATE.in_handler = True
         try:
             if handler is None:
-                return func(*args, **kwargs)
+                return call.native(call.func, *args, **kwargs)
             out = handler(call.name, call.payload, call.params,
                           call.original)
         finally:
@@ -305,10 +339,20 @@ def hooking(handlers: Dict[str, Handler]):
     Keys are the JAX primitives' names: "psum", "pmax", "pmin" (an
     all-reduce by its reduction), "all_gather", "reduce_scatter",
     "all_to_all".  Yields the mode; its ``dispatched`` counts the
-    operators it saw.
+    operators it saw.  While a profiler runs the context records the
+    span ``hook.mode`` (:mod:`repro_torch.obs`) with the counts
+    ``dispatched`` and ``self_ns``, the mode's own host time.
     """
-    with _HookMode(dict(handlers)) as mode:
-        yield mode
+    with obs.span("hook.mode"):
+        timed = obs.recording()
+        mode = _HookMode(dict(handlers), timed)
+        try:
+            with mode:
+                yield mode
+        finally:
+            if timed:
+                obs.count("dispatched", mode.dispatched)
+                obs.count("self_ns", mode.self_ns)
 
 
 def hook_collectives(fn: Callable, handlers: Dict[str, Handler]) -> Callable:

@@ -15,7 +15,12 @@ per chunk); ``run`` patches ``HALT_FUEL`` afterwards, ``span`` stops
 after at most ``span`` chunks and does not.  Both are :func:`lockstep`
 over one carry; a fleet cut into slices on several devices
 (``repro_torch.parallel.sharding``) runs through :func:`lockstep` over
-its slices.
+its slices.  While a profiler runs, :func:`lockstep` records the spans
+``fleet.check`` (the operand checks and the image-id sync),
+``fleet.args`` (the kernel's arguments), and each chunk's
+``fleet.alive`` (the liveness test and its sync) and ``fleet.launch``,
+and adds its chunks to the enclosing span's ``chunks``
+(:mod:`repro_torch.obs`).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from ... import obs
 from ...core import fleet as F
 from ...core import layout as L
 from ...core.machine import MachineState
@@ -153,16 +159,23 @@ def lockstep(parts, *, chunk: int, span: Optional[int] = None,
     chunks.  The parts take the chunks one carry of all their lanes would
     take, so each lane's result is the same.  Every part is updated in
     place."""
-    for p in parts:
-        _validate(*p, chunk, block)
-        _check_ids(p[0], p[1])
-    launches = [_launch(*p, int(chunk)) for p in parts]
+    with obs.span("fleet.check"):
+        for p in parts:
+            _validate(*p, chunk, block)
+            _check_ids(p[0], p[1])
+    with obs.span("fleet.args"):
+        launches = [_launch(*p, int(chunk)) for p in parts]
     k = 0
-    while ((span is None or k < span)
-           and any(bool(F._alive(p[2]).any()) for p in parts)):
-        for p, launch in zip(parts, launches):
-            _chunk(*p, int(chunk), block, launch)
+    while span is None or k < span:
+        with obs.span("fleet.alive"):
+            alive = any(bool(F._alive(p[2]).any()) for p in parts)
+        if not alive:
+            break
+        with obs.span("fleet.launch"):
+            for p, launch in zip(parts, launches):
+                _chunk(*p, int(chunk), block, launch)
         k += 1
+    obs.count("chunks", k)
 
 
 def run(imgs: F.FleetImages, ids: torch.Tensor, s: MachineState,

@@ -19,8 +19,14 @@ bit-identical with obs on and off (asserted by
 ``tests/test_torch_obs.py``; the JAX package's
 ``benchmarks/obs_overhead.py`` prices it there), and registry state
 exports and restores (``export``/``restore``, ``watermark``) so a durable
-server can keep counters monotone and spans complete across a recovery
-(durable serving is not in the port yet).
+server can keep counters monotone and spans complete across a recovery.
+
+Apart from the server, :func:`span` and :func:`count` name the program's
+own work (the census driver's chunks, the train step's passes, the
+collective hook's own time) while a ``torch.profiler`` runs, on the
+profiler's clock, and :func:`recorded` returns what they recorded
+(``spans``); with no profiler running a span site is the shared no-op
+timer.
 """
 from __future__ import annotations
 
@@ -29,11 +35,14 @@ from typing import Optional
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                                make_sink, now)
 from .profiler import NULL_TIMER, PHASES, PhaseProfiler
-from .spans import SpanTracker
+from .spans import (RECORDER, Span, SpanRecorder, SpanTracker, count,
+                    recorded, recording, span)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "ObsHub",
-    "PHASES", "PhaseProfiler", "SpanTracker", "make_sink", "now", "phase",
+    "PHASES", "PhaseProfiler", "RECORDER", "Span", "SpanRecorder",
+    "SpanTracker", "count", "make_sink", "now", "phase", "recorded",
+    "recording", "span",
 ]
 
 

@@ -1,6 +1,8 @@
-"""Per-request lifecycle spans (repro_torch.obs).
+"""Spans (repro_torch.obs): a request's lifecycle in the server, and
+the program's own work while a torch profiler runs.
 
-A span follows one ``FleetRequest`` through the server:
+**Request spans** (:class:`SpanTracker`).  A span follows one
+``FleetRequest`` through the server:
 
     submit -> admit -> [preempt -> resume]* -> [c3_readmit]* -> complete
                                                              -> shed
@@ -22,12 +24,34 @@ a crash-replay is counted exactly once — the closed-rid set rides in
 ``export()``/``restore()`` through snapshot metadata.  That is what
 makes recovered histograms *span-complete*: no lifecycle lost, none
 double-counted.
+
+**Program spans** (:func:`span`, :func:`count`, :func:`recorded`).
+``with span("fleet.launch"):`` names a stretch of the program's host
+time.  Recording follows ``torch.profiler``: while no profiler runs
+(``torch.autograd._profiler_enabled()`` is false) a span site returns
+the shared :data:`~repro_torch.obs.profiler.NULL_TIMER`, with no
+allocation and no clock read.  While one runs, each span keeps its name,
+start and end (the :func:`~repro_torch.obs.metrics.now` timebase,
+``perf_counter``, shifted by one offset to Unix-epoch time, taken when
+recording begins after a stretch without a profiler: the clock of the
+profiler's own events), its enclosing span on the same thread, and the
+counts :func:`count` adds to it; a span made with ``device=True``
+records a CUDA event at each end on the current stream when the card is
+in use, resolved to milliseconds only by :func:`recorded`.  The
+recorder runs no dispatcher operator (a ``TorchDispatchMode`` sees
+nothing of it, where ``torch.profiler.record_function`` is two
+operators) and keeps at most ``MAX_SPANS``, counting those it drops.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import threading
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
 
 from .metrics import MetricsRegistry, now
+from .profiler import NULL_TIMER
 
 # Events that put a request on a lane / take it off one.
 _RUN_EVENTS = ("admit", "resume", "c3_readmit")
@@ -165,3 +189,138 @@ class SpanTracker:
         for rid in d["done"]:
             self._done[rid] = self._done.get(rid, 0) + 1
         self._open_g.set(len(self._open))
+
+
+# -- program spans -------------------------------------------------------
+
+MAX_SPANS = 1 << 18
+
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class Span(NamedTuple):
+    """A recorded program span: ``start`` and ``end`` in Unix-epoch
+    seconds (the profiler's clock), ``parent`` the index of the enclosing
+    span in the same list (None for a root), ``thread`` the recording
+    thread's ident, ``device_ms`` the time between its CUDA events (a
+    ``device=True`` span on the card), else None."""
+    name: str
+    start: float
+    end: float
+    parent: Optional[int]
+    counts: Dict[str, int]
+    thread: int
+    device_ms: Optional[float]
+
+
+class _Open:
+    """A span being recorded (times in epoch nanoseconds)."""
+
+    __slots__ = ("rec", "name", "start", "end", "parent", "counts",
+                 "thread", "events", "ms")
+
+    def __init__(self, rec: "SpanRecorder", name: str, events):
+        self.rec, self.name, self.events = rec, name, events
+        self.end = self.counts = self.ms = None
+
+    def __enter__(self):
+        stack = self.rec._stack()
+        self.parent = stack[-1] if stack else None
+        self.thread = threading.get_ident()
+        stack.append(self)
+        if self.events is not None:
+            self.events[0].record()
+        self.start = time.perf_counter_ns() + self.rec.offset
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.perf_counter_ns() + self.rec.offset
+        if self.events is not None:
+            self.events[1].record()
+        self.rec._stack().pop()
+        return False
+
+
+class SpanRecorder:
+    """The program's spans while a profiler runs (one per process:
+    :data:`RECORDER`; the module functions are its methods)."""
+
+    def __init__(self, cap: int = MAX_SPANS):
+        self.cap = cap
+        self.spans: List[_Open] = []
+        self.dropped = 0
+        self.live = False     # recording since the last span site
+        self.offset = 0       # epoch ns less perf_counter ns
+        self._local = threading.local()
+
+    def _stack(self) -> List[_Open]:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def span(self, name: str, device: bool = False):
+        """``with span(name):`` records the stretch while a profiler
+        runs, else is the shared no-op timer."""
+        if not _profiler_enabled():
+            self.live = False
+            return NULL_TIMER
+        if not self.live:
+            p0 = time.perf_counter_ns()
+            wall = time.time_ns()
+            self.offset = wall - (p0 + time.perf_counter_ns()) // 2
+            self.live = True
+        if len(self.spans) >= self.cap:
+            self.dropped += 1
+            return NULL_TIMER
+        events = None
+        if device and torch.cuda.is_initialized():
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        sp = _Open(self, name, events)
+        self.spans.append(sp)
+        return sp
+
+    def count(self, key: str, n: int = 1) -> None:
+        """Add ``n`` to ``key`` of the innermost span open on this thread
+        (nothing while no profiler runs)."""
+        if not _profiler_enabled():
+            return
+        stack = self._stack()
+        if stack:
+            top = stack[-1]
+            if top.counts is None:
+                top.counts = {}
+            top.counts[key] = top.counts.get(key, 0) + n
+
+    def recording(self) -> bool:
+        """Whether span sites record now (a profiler runs)."""
+        return _profiler_enabled()
+
+    def recorded(self) -> List[Span]:
+        """The closed spans, in the order they began."""
+        done = [s for s in self.spans if s.end is not None]
+        index = {id(s): i for i, s in enumerate(done)}
+        out = []
+        for s in done:
+            if s.events is not None and s.ms is None:
+                s.events[1].synchronize()
+                s.ms = s.events[0].elapsed_time(s.events[1])
+            out.append(Span(s.name, s.start * 1e-9, s.end * 1e-9,
+                            None if s.parent is None
+                            else index.get(id(s.parent)),
+                            dict(s.counts or {}), s.thread, s.ms))
+        return out
+
+    def clear(self) -> None:
+        """Forget the recorded spans and the count of those dropped."""
+        self.spans = []
+        self.dropped = 0
+
+
+RECORDER = SpanRecorder()
+span = RECORDER.span
+count = RECORDER.count
+recording = RECORDER.recording
+recorded = RECORDER.recorded

@@ -20,6 +20,11 @@ Functionally the same as ``make_train_step`` on the whole batch; it
 exists so the collective boundary is visible to the hooks
 (:mod:`repro_torch.hooks`: tracing, compression, schedule rewrite), one
 site a leaf as JAX's ``tree_map(psum)`` gives.
+
+While a profiler runs, both steps record the span ``train.step`` and its
+children ``train.forward`` (``lm.loss_fn``), ``train.backward`` (the
+gradient and its tree) and ``train.optimizer`` (AdamW, with its
+CUDA-event time on the card) (:mod:`repro_torch.obs`).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from .. import obs
 from ..configs.base import ModelConfig, RunConfig
 from ..models import lm
 from ..optim import compress as compress_lib
@@ -61,14 +67,17 @@ def grads_and_metrics(cfg: ModelConfig, run: RunConfig, params, batch):
     if run.param_wire_bf16:
         p = tree_map(lambda x: x.to(torch.bfloat16)
                      if x.dtype == torch.float32 else x, leaf)
-    loss, metrics = lm.loss_fn(cfg, run, p, batch)
-    wrt = [x for x in tree_leaves(leaf) if x.requires_grad]
-    got = dict(zip(map(id, wrt), torch.autograd.grad(loss, wrt)))
-    # on a mesh's DTensors each gradient is reduced to its parameter's
-    # layout, as JAX's partitioner lays out the gradient of a donated state
-    grads = tree_map(lambda x: constrain_like(got[id(x)].float(), x)
-                     if x.requires_grad
-                     else torch.zeros_like(x, dtype=torch.float32), leaf)
+    with obs.span("train.forward"):
+        loss, metrics = lm.loss_fn(cfg, run, p, batch)
+    with obs.span("train.backward"):
+        wrt = [x for x in tree_leaves(leaf) if x.requires_grad]
+        got = dict(zip(map(id, wrt), torch.autograd.grad(loss, wrt)))
+        # on a mesh's DTensors each gradient is reduced to its parameter's
+        # layout, as JAX's partitioner lays out the gradient of a donated
+        # state
+        grads = tree_map(lambda x: constrain_like(got[id(x)].float(), x)
+                         if x.requires_grad
+                         else torch.zeros_like(x, dtype=torch.float32), leaf)
     return grads, {k: metrics[k].detach() for k in METRICS}
 
 
@@ -81,6 +90,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
                          "backward; the train step runs the XLA route")
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        with obs.span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         mb = run.microbatch
         if mb > 1:
@@ -110,8 +123,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
             codec = "int8" if run.grad_compression == "int8_ef" else "bf16"
             grads, new_state["ef"] = compress_lib.compress_grads(
                 grads, state["ef"], codec)
-        params, opt, opt_metrics = adamw_update(params, grads, state["opt"],
-                                                run)
+        with obs.span("train.optimizer", device=True):
+            params, opt, opt_metrics = adamw_update(params, grads,
+                                                    state["opt"], run)
         new_state.update(params=params, opt=opt)
         return new_state, {**metrics, **opt_metrics}
 
@@ -143,6 +157,10 @@ def make_ddp_train_step(cfg: ModelConfig, run: RunConfig, mesh,
         return x[rank * w:(rank + 1) * w]
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        with obs.span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         local = {k: shard(x) for k, x in batch.items()}
         grads, metrics = grads_and_metrics(cfg, local_run, state["params"],
                                            local)
@@ -153,8 +171,9 @@ def make_ddp_train_step(cfg: ModelConfig, run: RunConfig, mesh,
             codec = "int8" if run.grad_compression == "int8_ef" else "bf16"
             grads, new_state["ef"] = compress_lib.compress_grads(
                 grads, state["ef"], codec)
-        params, opt, opt_metrics = adamw_update(state["params"], grads,
-                                                state["opt"], run)
+        with obs.span("train.optimizer", device=True):
+            params, opt, opt_metrics = adamw_update(state["params"], grads,
+                                                    state["opt"], run)
         new_state.update(params=params, opt=opt)
         return new_state, {**metrics, **opt_metrics}
 

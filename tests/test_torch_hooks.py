@@ -30,9 +30,15 @@ a shard_map over its one CPU device, the port on a one-rank gloo world.
 
 The JAX hook runs at trace time, once a site; the port's runs at every
 execution, so its counters count executions (a site times its trip).
+
+Under a profiler the hook records the span ``hook.mode`` with its
+``dispatched`` and its own host time (``self_ns``): a hooked DDP step
+sees the same operators and gives the same loss with recording on and
+off, and counts its own time only when on.
 """
 import multiprocessing as mp
 import threading
+import time
 import warnings
 
 import jax
@@ -54,9 +60,10 @@ from repro_torch.hooks import (COLLECTIVE_PRIMS, CastCompressHandler,
                                backend_collective_census, census_fn,
                                completeness_report, hook_collectives, hooking,
                                virtualize)
-from repro_torch.launch.mesh import init_world
+from repro_torch import obs
+from repro_torch.launch.mesh import init_world, make_test_mesh
 from repro_torch.models import lm
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import make_ddp_train_step, make_train_step
 
 import _two_ranks
 
@@ -421,3 +428,64 @@ def test_two_ranks_rsag_scatters_and_ddp_step_matches_whole_batch(tmp_path):
         g = a / ((1 - run.b1) * c_got)
         w = b.numpy() / ((1 - run.b1) * c_want)
         assert np.linalg.norm(g - w) <= SPLIT_GRAD_RTOL * np.linalg.norm(w)
+
+
+def test_hooked_step_records_its_spans_and_the_same_operators():
+    """A hooked DDP step on the one-rank world, with recording off and
+    on (a CPU profiler): the same operators dispatched, the same loss;
+    the mode's own time counted only when on, where the spans hold the
+    step's passes inside ``hook.mode``."""
+    got = {}
+    for on in (False, True):
+        cfg, run, state, batch = _two_ranks.ddp_inputs()
+        step = make_ddp_train_step(cfg, run, make_test_mesh(1, 1))
+        obs.RECORDER.clear()
+        prof = profile(activities=[ProfilerActivity.CPU]) if on else None
+        if on:
+            prof.start()
+        with hooking({"psum": TraceHandler()}) as mode:
+            _, m = step(state, batch)
+        if on:
+            prof.stop()
+        got[on] = (mode.dispatched, float(m["loss"]), mode.self_ns,
+                   obs.recorded())
+    (n_off, loss_off, ns_off, spans_off), (n_on, loss_on, ns_on,
+                                           spans_on) = got[False], got[True]
+    assert n_on == n_off > 100 and loss_on == loss_off
+    assert ns_off == 0 and ns_on > 0 and spans_off == []
+    names = [s.name for s in spans_on]
+    assert names == ["hook.mode", "train.step", "train.forward",
+                     "train.backward", "train.optimizer"]
+    assert [s.parent for s in spans_on] == [None, 0, 1, 1, 1]
+    assert spans_on[0].counts == {"dispatched": n_on, "self_ns": ns_on}
+    obs.RECORDER.clear()
+
+
+def test_hook_time_counts_its_handler_not_the_native_collective(
+        monkeypatch):
+    """Under a profiler the mode's ``self_ns`` holds a collective's whole
+    trampoline, its handler's own work included, and leaves out the
+    native operator the handler runs: with a handler that works 10 ms
+    and a native all-reduce made to take 30 ms, four all-reduces count
+    40 ms and not 160."""
+    from repro_torch.hooks import interceptor
+    run = interceptor._Call._run
+
+    def slow_run(self, bound):
+        time.sleep(0.030)
+        return run(self, bound)
+
+    def handler(name, args, params, do_original):
+        time.sleep(0.010)
+        return do_original()
+
+    monkeypatch.setattr(interceptor._Call, "_run", slow_run)
+    obs.RECORDER.clear()
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    with hooking({"psum": handler}) as mode:
+        dp_step(X())
+    prof.stop()
+    assert mode.timed
+    assert 40e6 <= mode.self_ns < 100e6
+    obs.RECORDER.clear()

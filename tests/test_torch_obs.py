@@ -9,12 +9,21 @@ values and timestamps made from a seed; every export must be equal.
 Where a value is wall-clock (a span or phase timed on the host, a sink
 write's timestamp) it is masked and only its count compared.  An observed
 server publishes states bit-identical to an unobserved one.
+
+The program spans (``obs.span``, the port's own): nothing recorded and
+the shared no-op timer without a profiler; under a CPU profiler nested
+spans with their parents and counts, on the profiler's clock (a span
+brackets the operator it holds), no dispatcher operator run, a cap; a
+CPU census records one ``fleet.run`` with its chunks and the same carry.
 """
 import json
 import re
 
 import numpy as np
 import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import HookConfig as JHookConfig
 from repro.core import Mechanism as JMechanism
@@ -31,9 +40,12 @@ from repro.sched import PolicyScheduler as JPolicyScheduler
 from repro.sched import TenantBudget as JTenantBudget
 from repro.serve.fleet_server import FleetServer as JFleetServer
 
+from repro_torch import obs
 from repro_torch.core import HookConfig, Mechanism, prepare, programs
-from repro_torch.obs import (PHASES, MetricsRegistry, ObsHub, make_sink, now,
-                             phase as obs_phase)
+from repro_torch.core import fleet, runtime
+from repro_torch.kernels.megastep import ops as mops
+from repro_torch.obs import (NULL_TIMER, PHASES, MetricsRegistry, ObsHub,
+                             make_sink, now, phase as obs_phase)
 from repro_torch.obs.metrics import (JsonlSink, MemorySink, PromFileSink,
                                      _bucket_index, _bucket_upper)
 from repro_torch.obs.profiler import PhaseProfiler
@@ -302,3 +314,155 @@ def test_server_sink_and_fmt_validation(tmp_path):
         FleetServer(pool=1, device="cpu", cfg=HookConfig(
             obs_enabled=True, obs_sink="carrier-pigeon"))
     assert isinstance(now(), float)
+
+
+# -- program spans ------------------------------------------------------------
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _cpu_profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_without_a_profiler_is_the_null_timer():
+    obs.RECORDER.clear()
+    assert not obs.recording()
+    with obs.span("a") as a, obs.span("b", device=True) as b:
+        obs.count("n", 3)
+    assert a is NULL_TIMER and b is NULL_TIMER
+    assert obs.recorded() == [] and obs.RECORDER.dropped == 0
+
+
+def test_nested_spans_record_parents_and_counts():
+    obs.RECORDER.clear()
+    with _cpu_profile():
+        assert obs.recording()
+        with obs.span("root"):
+            obs.count("chunks", 2)
+            with obs.span("child"):
+                obs.count("n")
+                obs.count("n", 4)
+            with obs.span("sibling", device=True):
+                with obs.span("leaf"):
+                    pass
+            obs.count("chunks")
+    got = obs.recorded()
+    assert [s.name for s in got] == ["root", "child", "sibling", "leaf"]
+    assert [s.parent for s in got] == [None, 0, 0, 2]
+    assert [s.counts for s in got] == [{"chunks": 3}, {"n": 5}, {}, {}]
+    assert all(s.device_ms is None for s in got)     # no card in use
+    assert got[0].start <= got[1].start <= got[1].end <= got[2].start
+    assert got[2].start <= got[3].start <= got[3].end <= got[2].end \
+        <= got[0].end
+    obs.RECORDER.clear()
+
+
+ALIGN_S = 1e-6
+
+
+def test_span_brackets_the_profilers_operator_event():
+    """The spans' clock is the profiler's: a span around ``x.add(1)``
+    holds kineto's ``aten::add`` event (but for the clocks' alignment:
+    one offset between two clocks read a few hundred ns apart, in
+    seconds since 1970 that a float resolves to 0.24 us), within 20 us
+    on each side (the tightest of five, as a thread the scheduler stops
+    inside a span widens it; the profiler's first events run slow)."""
+    x = torch.ones(8)
+    obs.RECORDER.clear()
+    with _cpu_profile() as prof:
+        for _ in range(5):
+            with obs.span("add"):
+                x.add(1)
+    spans = obs.recorded()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.name() == "aten::add"]
+    assert len(spans) == len(evs) == 5
+    before, after = [], []
+    for sp, ev in zip(spans, evs):
+        start = ev.start_ns() * 1e-9
+        end = start + ev.duration_ns() * 1e-9
+        before.append(start - sp.start)
+        after.append(sp.end - end)
+    assert min(before + after) >= -ALIGN_S
+    assert min(before) <= 20e-6 and min(after) <= 20e-6
+    obs.RECORDER.clear()
+
+
+def test_recorder_runs_no_dispatcher_operator():
+    """Spans, device spans and counts are invisible to a dispatch mode
+    (``record_function`` would be two operators a span)."""
+    obs.RECORDER.clear()
+    with _cpu_profile(), _CountOps() as mode:
+        with obs.span("a"):
+            with obs.span("b", device=True):
+                obs.count("n")
+    assert mode.ops == []
+    assert [s.name for s in obs.recorded()] == ["a", "b"]
+    with _cpu_profile(), _CountOps() as mode:
+        with torch.profiler.record_function("c"):
+            pass
+    assert len(mode.ops) == 2
+    obs.RECORDER.clear()
+
+
+def test_recorder_keeps_at_most_its_cap():
+    rec = obs.SpanRecorder(cap=2)
+    with _cpu_profile():
+        for name in "abc":
+            with rec.span(name):
+                pass
+        with rec.span("d") as d:
+            pass
+    assert d is NULL_TIMER
+    assert [s.name for s in rec.recorded()] == ["a", "b"]
+    assert rec.dropped == 2
+    rec.clear()
+    assert rec.recorded() == [] and rec.dropped == 0
+
+
+def _tiny_fleet():
+    pps = [prepare(programs.getpid_loop(n), Mechanism.ASC, virtualize=True)
+           for n in (2, 3, 4)]
+    return runtime.pack_fleet(pps, fuel=FUEL, device="cpu")
+
+
+def test_run_fleet_records_its_chunks_and_the_same_carry(monkeypatch):
+    imgs, ids, s = _tiny_fleet()
+    seen = {"chunks": 0}
+    chunk = mops._chunk
+
+    def counted(*a, **kw):
+        seen["chunks"] += 1
+        return chunk(*a, **kw)
+
+    monkeypatch.setattr(mops, "_chunk", counted)
+    obs.RECORDER.clear()
+    off = fleet.run_fleet(imgs, type(s)(*(x.clone() for x in s)), ids,
+                          chunk=8, device="cpu")
+    assert obs.recorded() == []
+    n_off, seen["chunks"] = seen["chunks"], 0
+    with _cpu_profile():
+        on = fleet.run_fleet(imgs, type(s)(*(x.clone() for x in s)), ids,
+                             chunk=8, device="cpu")
+    assert seen["chunks"] == n_off > 1
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    got = obs.recorded()
+    (run,) = [sp for sp in got if sp.name == "fleet.run"]
+    assert run.counts == {"chunks": n_off}
+    names = [sp.name for sp in got]
+    assert names[:4] == ["fleet.run", "fleet.inputs", "fleet.check",
+                         "fleet.args"]
+    assert names[-1] == "fleet.patch_fuel"
+    assert names.count("fleet.launch") == n_off
+    assert names.count("fleet.alive") == n_off + 1
+    assert all(sp.parent == 0 for sp in got[1:])
+    obs.RECORDER.clear()
